@@ -1,0 +1,152 @@
+"""Command-line entry points of the port: ``build-index`` and ``pipeline``,
+with the positional arguments of ``deepreadmapper_tpu/cli.py``.
+
+  pipeline     <index_prefix> <query> <ref> [ef k k_clusters output_dir
+               use_dynamic use_streaming]
+  build-index  <ref> <index_prefix> <ref_len> [stride M_pq nbits M_hnsw EFC]
+
+Flags of the JAX CLI that the port does not have yet are accepted and raise
+NotImplementedError, so a command line written for either package gives a
+clear answer.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from deepreadmapper_tpu_torch import not_ported
+
+# Flags of the JAX CLI whose features are not ported yet (ROADMAP.md).
+_PIPELINE_UNPORTED = (
+    "--cigar", "--mapq", "--mapq-calibrated", "--long-reads", "--qual",
+    "--sort", "--bam", "--mark-duplicates", "--distributed",
+    "--paired-interleaved", "--no-rescue",
+)
+_PIPELINE_UNPORTED_VALUED = (
+    "--paired2", "--read-group", "--profile", "--lr-max-chunks",
+    "--max-isize", "--min-isize",
+)
+_BUILD_UNPORTED = ("--resume", "--distributed", "--opq")
+_BUILD_UNPORTED_VALUED = (
+    "--weights", "--shards", "--nlist", "--level-mode", "--build-mode",
+)
+
+
+def _add_pipeline(sub):
+    p = sub.add_parser("pipeline", help="full search pipeline (L2 path)")
+    p.add_argument("index_prefix")
+    p.add_argument("query_file")
+    p.add_argument("ref_file")
+    p.add_argument("ef", nargs="?", type=int, default=None)
+    p.add_argument("k", nargs="?", type=int, default=None)
+    p.add_argument("k_clusters", nargs="?", type=int, default=None)
+    p.add_argument("output_dir", nargs="?", default=".")
+    p.add_argument("use_dynamic", nargs="?", type=int, default=0)
+    p.add_argument("use_streaming", nargs="?", type=int, default=0)
+    p.add_argument("--no-sam", action="store_true")
+    p.add_argument("--rerank", default="l2", choices=["l2", "sw"])
+    p.add_argument("--dense-rerank", action="store_true",
+                   help="exactly re-rank the search candidates on a dense "
+                        "(stride 1) index")
+    p.add_argument("--weights", default=None, metavar="NPZ",
+                   help="encoder weights npz for query embedding")
+    for flag in _PIPELINE_UNPORTED:
+        p.add_argument(flag, action="store_true", help="not ported yet")
+    for flag in _PIPELINE_UNPORTED_VALUED:
+        p.add_argument(flag, default=None, help="not ported yet")
+
+
+def _add_build(sub):
+    p = sub.add_parser("build-index", help="build an index from a reference")
+    p.add_argument("ref_file")
+    p.add_argument("index_prefix")
+    p.add_argument("ref_len", type=int)
+    p.add_argument("stride", nargs="?", type=int, default=1)
+    p.add_argument("M_pq", nargs="?", type=int, default=8)
+    p.add_argument("nbits", nargs="?", type=int, default=8)
+    p.add_argument("M_hnsw", nargs="?", type=int, default=16)
+    p.add_argument("EFC", nargs="?", type=int, default=200)
+    p.add_argument("--index-type", default="INT8FLAT",
+                   help="INT8FLAT (default: exhaustive int8 scan) | FLAT "
+                        "(exact fp32); other engines are not ported yet")
+    for flag in _BUILD_UNPORTED:
+        p.add_argument(flag, action="store_true", help="not ported yet")
+    for flag in _BUILD_UNPORTED_VALUED:
+        p.add_argument(flag, default=None, help="not ported yet")
+
+
+def _refuse_unported(args, flags) -> None:
+    for flag in flags:
+        if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None, False):
+            raise not_ported(flag)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="deepreadmapper_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    _add_pipeline(sub)
+    _add_build(sub)
+    args = ap.parse_args(argv)
+
+    if args.cmd == "pipeline":
+        _refuse_unported(args, _PIPELINE_UNPORTED + _PIPELINE_UNPORTED_VALUED)
+        from deepreadmapper_tpu_torch.pipeline.search import run_pipeline
+
+        vectorizer = None
+        if args.weights:
+            from deepreadmapper_tpu_torch.models.encoder import (
+                Vectorizer,
+                load_params,
+            )
+
+            vectorizer = Vectorizer(load_params(args.weights))
+        res = run_pipeline(
+            args.index_prefix,
+            args.query_file,
+            args.ref_file,
+            ef=args.ef,
+            k=args.k,
+            k_clusters=args.k_clusters,
+            output_dir=args.output_dir,
+            use_dynamic=bool(args.use_dynamic),
+            use_streaming=bool(args.use_streaming),
+            rerank=args.rerank,
+            dense_rerank=args.dense_rerank,
+            write_sam=not args.no_sam,
+            vectorizer=vectorizer,
+        )
+        print(
+            f"[MAIN] {res['num_queries']} queries | embed {res['t_embed']:.2f}s "
+            f"| search {res['t_search']:.2f}s | post {res['t_post']:.2f}s"
+        )
+        return 0
+
+    if args.cmd == "build-index":
+        _refuse_unported(args, _BUILD_UNPORTED + _BUILD_UNPORTED_VALUED)
+        from deepreadmapper_tpu.config import BuildConfig
+        from deepreadmapper_tpu_torch.pipeline.build import build_index
+
+        cfg = BuildConfig(
+            stride=args.stride,
+            m_pq=args.M_pq,
+            nbits=args.nbits,
+            m_hnsw=args.M_hnsw,
+            efc=args.EFC,
+        )
+        config = build_index(
+            args.ref_file,
+            args.index_prefix,
+            args.ref_len,
+            stride=args.stride,
+            index_type=args.index_type,
+            build_cfg=cfg,
+        )
+        print(f"[BUILD INDEX] saved {config['n_vects']} vectors to "
+              f"{args.index_prefix}")
+        return 0
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,170 @@
+"""2-layer bidirectional GRU read encoder in PyTorch.
+
+Counterpart of ``deepreadmapper_tpu/models/encoder.py``.  Math (ONNX/OpenVINO
+GRU, gate order z, r, n, linear_before_reset):
+
+    z = sigmoid(x Wz^T + h Rz^T + bz)
+    r = sigmoid(x Wr^T + h Rr^T + br)
+    n = tanh(x Wh^T + Wbh + r * (h Rh^T + Rbh))
+    h' = (1 - z) * n + z * h
+
+tokens [B, 123] -> embedding gather (time-major) -> layer 1 fwd/bwd over all
+steps -> layer 2 fwd/bwd final hidden -> [B, 128] fp32.  The four GRU calls
+go through ``models.gru`` (the CUDA kernel on a GPU).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepreadmapper_tpu_torch import default_device
+from deepreadmapper_tpu_torch.models.gru import gru_proj_last, gru_proj_seq
+from deepreadmapper_tpu_torch.tokenizer_device import tokens_from_packed
+
+HIDDEN = 64
+OUT_SIZE = 2 * HIDDEN
+MAX_LEN = 123
+
+# The shipped weights of the JAX package, read by file path: importing
+# deepreadmapper_tpu.models would load jax.
+DEFAULT_NPZ = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "deepreadmapper_tpu", "models", "data", "finetuned_sgn33.npz",
+)
+
+_LAYER_KEYS = ("w", "r", "bzr", "rbh")
+
+
+def _layer_from_ir(w: np.ndarray, r: np.ndarray, b: np.ndarray) -> dict:
+    """IR layout w [2,192,in], r [2,192,64], b [2,256] -> the layout of
+    encoder._layer_from_ir: w/r transposed for x @ w, bzr = [bz, br, Wbh],
+    rbh separate."""
+    w = w.astype(np.float32)
+    r = r.astype(np.float32)
+    b = b.astype(np.float32)
+    return {
+        "w": np.ascontiguousarray(np.swapaxes(w, 1, 2)),   # [2, in, 192]
+        "r": np.ascontiguousarray(np.swapaxes(r, 1, 2)),   # [2, 64, 192]
+        "bzr": np.concatenate([b[:, :128], b[:, 128:192]], axis=1),  # [2,192]
+        "rbh": np.ascontiguousarray(b[:, 192:256]),         # [2, 64]
+    }
+
+
+def load_params(npz_path: str = DEFAULT_NPZ) -> dict:
+    """Encoder weights npz (IR roles) -> {'embedding', 'layers': [l1, l2]}
+    of fp32 numpy arrays."""
+    with np.load(npz_path) as z:
+        return {
+            "embedding": z["embedding"].astype(np.float32),
+            "layers": [
+                _layer_from_ir(z["gru1_W"], z["gru1_R"], z["gru1_B"]),
+                _layer_from_ir(z["gru2_W"], z["gru2_R"], z["gru2_B"]),
+            ],
+        }
+
+
+def params_from_jax(params) -> dict:
+    """The JAX package's parameters -> the port's.  Takes an EncoderParams
+    (whose leaves convert with np.asarray) or a dict of the same fields."""
+    if isinstance(params, dict):
+        emb, layers = params["embedding"], params["layers"]
+    else:
+        emb, layers = params.embedding, params.layers
+    out_layers = []
+    for lp in layers:
+        get = lp.get if isinstance(lp, dict) else lambda k, lp=lp: getattr(lp, k)
+        out_layers.append(
+            {k: np.asarray(get(k), dtype=np.float32) for k in _LAYER_KEYS}
+        )
+    return {"embedding": np.asarray(emb, np.float32), "layers": out_layers}
+
+
+class Encoder(nn.Module):
+    """tokens [B, T] or wire rows [B, 48] -> embeddings [B, 128] fp32."""
+
+    def __init__(self, params: dict | None = None):
+        super().__init__()
+        params = params if params is not None else load_params()
+        self.register_buffer("embedding", torch.tensor(params["embedding"]))
+        for li, lp in enumerate(params["layers"]):
+            for k in _LAYER_KEYS:
+                self.register_buffer(f"l{li}_{k}", torch.tensor(lp[k]))
+
+    def _layer(self, li: int, dtype: torch.dtype) -> list[torch.Tensor]:
+        return [getattr(self, f"l{li}_{k}").to(dtype) for k in _LAYER_KEYS]
+
+    @torch.no_grad()
+    def encode_tokens(self, tokens: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        # Gather through the transposed tokens: x lands time-major [T, B, 64]
+        # with no activation transpose.
+        x = self.embedding.to(dtype)[tokens.long().T]
+        w, r, bzr, rbh = self._layer(0, dtype)
+        hf = gru_proj_seq(x, w[0], bzr[0], r[0], rbh[0], False)
+        hb = gru_proj_seq(x, w[1], bzr[1], r[1], rbh[1], True)
+        out1 = torch.cat([hf, hb], dim=-1)  # [T, B, 128]
+        del x, hf, hb
+        w, r, bzr, rbh = self._layer(1, dtype)
+        hf_t = gru_proj_last(out1, w[0], bzr[0], r[0], rbh[0], False)
+        hb_t = gru_proj_last(out1, w[1], bzr[1], r[1], rbh[1], True)
+        return torch.cat([hf_t, hb_t], dim=-1).to(torch.float32)
+
+    def encode_packed(self, wire: torch.Tensor) -> torch.Tensor:
+        """48-byte wire rows -> fp32 embeddings; tokenization runs on wire's
+        device."""
+        return self.encode_tokens(tokens_from_packed(wire))
+
+    forward = encode_tokens
+
+
+class Vectorizer:
+    """Strings / bytes / wire rows -> fp32 embeddings, in device batches."""
+
+    def __init__(self, params: dict | None = None, device_batch: int = 8192,
+                 device: torch.device | str | None = None):
+        self.device = torch.device(device) if device is not None else default_device()
+        self.encoder = Encoder(params).to(self.device)
+        self.device_batch = device_batch
+
+    def _dispatch_batches(self, rows: np.ndarray, encode_one, device_out: bool):
+        """Encode rows in device batches of at most device_batch (the last
+        one ragged: nothing here needs fixed shapes).  Launches are
+        asynchronous on a GPU; device_out=True keeps the result there."""
+        n = rows.shape[0]
+        bs = self.device_batch
+        outs = []
+        for start in range(0, n, bs):
+            chunk = np.ascontiguousarray(rows[start : start + bs])
+            outs.append(encode_one(torch.from_numpy(chunk).to(self.device)))
+        if not outs:
+            out = torch.zeros((0, OUT_SIZE), dtype=torch.float32, device=self.device)
+        else:
+            out = torch.cat(outs) if len(outs) > 1 else outs[0]
+        return out if device_out else out.cpu().numpy()
+
+    def vectorize_tokens(self, tokens: np.ndarray, device_out: bool = False):
+        """tokens int [N, T] -> fp32 [N, 128].  Tokens travel as int16."""
+        return self._dispatch_batches(
+            np.asarray(tokens).astype(np.int16), self.encoder.encode_tokens,
+            device_out,
+        )
+
+    def vectorize(self, seqs: list[str]) -> np.ndarray:
+        from deepreadmapper_tpu import tokenizer as tok
+
+        return self.vectorize_tokens(tok.tokenize_strings(seqs, MAX_LEN))
+
+    def vectorize_wrapped_bytes(self, mat: np.ndarray, lengths: np.ndarray):
+        """'<'-wrapped byte matrix -> embeddings via the 48-byte wire upload
+        and the device tokenizer."""
+        from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped
+
+        return self.vectorize_wire(pack_wrapped(mat, lengths))
+
+    def vectorize_wire(self, wire: np.ndarray, device_out: bool = False):
+        """Pre-packed 48-byte wire rows -> embeddings (tokenized on device)."""
+        return self._dispatch_batches(wire, self.encoder.encode_packed, device_out)

@@ -1,0 +1,173 @@
+"""Index build: ref input -> window stream -> 2-bit wire -> encoder ->
+(int8 quantization on the device) -> engine -> config.txt + engine files.
+
+Counterpart of ``deepreadmapper_tpu/pipeline/build.py`` for the FLAT and
+INT8FLAT engines.  The on-disk result is the JAX package's: either package
+loads an index the other built.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from deepreadmapper_tpu import native
+from deepreadmapper_tpu import tokenizer as tok
+from deepreadmapper_tpu.config import BuildConfig
+from deepreadmapper_tpu.io import fasta as fasta_io
+from deepreadmapper_tpu.io.configstore import save_config
+from deepreadmapper_tpu.io.fastq import parse_fastq_bytes
+from deepreadmapper_tpu.io.fileio import true_ext
+from deepreadmapper_tpu.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
+from deepreadmapper_tpu.io.results import load_embeddings_npy
+from deepreadmapper_tpu.utils.memory import estimate_window_count
+from deepreadmapper_tpu.utils.progress import Progress
+from deepreadmapper_tpu_torch import not_ported
+from deepreadmapper_tpu_torch.index.flat import FlatIndex
+from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex, quantize
+from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer
+from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
+
+PORTED_ENGINES = ("INT8FLAT", "FLAT")
+INT8_SCALE = 1.0 / 127.0  # encoder outputs are tanh-bounded in [-1, 1]
+
+
+def window_wire(rec: np.ndarray, ref_len: int, stride: int, first: int,
+                n: int) -> np.ndarray:
+    """Interleaved (fwd, revcomp) wire rows [2n, 48] for windows
+    [first, first+n) of one record: the native fused packer when the
+    library builds, else numpy windowing + pack_wrapped_numpy."""
+    if native.available():
+        return native.pack_windows(rec, ref_len, stride, first, n)
+    positions = (first + np.arange(n, dtype=np.int64)) * stride
+    mat, lengths = fasta_io.window_byte_matrix(rec, positions, ref_len, tok.MAX_LEN)
+    return pack_wrapped_numpy(mat, lengths)
+
+
+def _embed_record_windows(rec, ref_len: int, stride: int, first: int, n: int,
+                          vectorizer: Vectorizer, transform=None,
+                          device_out: bool = False):
+    """Embed windows [first, first+n) of ONE record -> [2n, 128]
+    (interleaved fwd/rev, row = 2*window + strand).  transform (e.g. int8
+    quantization) applies on the device before any download."""
+    emb = vectorizer.vectorize_wire(
+        window_wire(rec, ref_len, stride, first, n), device_out=True
+    )
+    if transform is not None:
+        emb = transform(emb)
+    return emb if device_out else emb.cpu().numpy()
+
+
+def embed_fasta_windows(
+    records: list[np.ndarray],
+    ref_len: int,
+    stride: int,
+    vectorizer: Vectorizer,
+    window_chunk: int = 65536,
+    device_out: bool = False,
+    chunk_transform=None,
+):
+    """Embed every (fwd, revcomp) window of every record, streamed in chunks
+    so genome-scale inputs never materialize all window bytes at once.
+    device_out=True returns a tensor on the vectorizer's device;
+    chunk_transform applies to each device chunk before collection."""
+    outs = []
+    total = 2 * sum(fasta_io.num_windows(len(r), ref_len, stride) for r in records)
+    with Progress(total, "[BUILD] embed windows") as prog:
+        for rec in records:
+            nw = fasta_io.num_windows(len(rec), ref_len, stride)
+            for start in range(0, nw, window_chunk):
+                n = min(window_chunk, nw - start)
+                outs.append(
+                    _embed_record_windows(
+                        rec, ref_len, stride, start, n, vectorizer,
+                        transform=chunk_transform, device_out=True,
+                    )
+                )
+                prog.update(2 * n)
+    if outs:
+        out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    else:
+        out = torch.zeros((0, OUT_SIZE), dtype=torch.float32,
+                          device=vectorizer.device)
+        if chunk_transform is not None:
+            out = chunk_transform(out)
+    return out if device_out else out.cpu().numpy()
+
+
+def embed_input_file(path: str, ref_len: int, stride: int,
+                     vectorizer: Vectorizer) -> np.ndarray:
+    """Embeddings of a reference input: .npy as is, FASTA windows, or one
+    embedding per FASTQ / txt sequence."""
+    ext = true_ext(path)
+    if ext == ".npy":
+        return load_embeddings_npy(path)
+    if ext in FASTA_EXTS:
+        records = fasta_io.parse_fasta_records(path)
+        return embed_fasta_windows(records, ref_len, stride, vectorizer)
+    if ext in FASTQ_EXTS:
+        mat, lengths, _ = parse_fastq_bytes(path)
+        return vectorizer.vectorize_wrapped_bytes(mat, lengths)
+    if ext == ".txt":
+        return vectorizer.vectorize(read_txt(path))
+    raise ValueError(f"Unsupported reference input: {path}")
+
+
+def build_index(
+    ref_file: str,
+    index_prefix: str,
+    ref_len: int,
+    stride: int = 1,
+    index_type: str = "INT8FLAT",
+    build_cfg: BuildConfig | None = None,
+    device: torch.device | str | None = None,
+) -> dict:
+    """Build + persist an index directory; returns the saved config."""
+    if index_type not in PORTED_ENGINES:
+        raise not_ported(f"index type {index_type}")
+    cfg = build_cfg or BuildConfig(stride=stride)
+    vectorizer = Vectorizer(device=device)
+    ext = true_ext(ref_file)
+    if ext in FASTA_EXTS:
+        nv = estimate_window_count(ref_file, ref_len, stride)  # both strands
+        per_vec = 128 if index_type == "INT8FLAT" else 512
+        print(f"[BUILD INDEX] ~{nv} vectors; estimated index memory "
+              f"{nv * per_vec / 1e6:.1f} MB ({index_type})")
+
+    if index_type == "INT8FLAT" and ext in FASTA_EXTS:
+        # Quantize every embedding chunk on the device before collection:
+        # only the 128 B/window codes are downloaded.
+        records = fasta_io.parse_fasta_records(ref_file)
+        codes = embed_fasta_windows(
+            records, ref_len, stride, vectorizer,
+            chunk_transform=lambda e: quantize(e, INT8_SCALE),
+        )
+        engine = Int8FlatIndex(codes, INT8_SCALE, codes.shape[0], device)
+        n_vects, dim = codes.shape
+    else:
+        embeddings = embed_input_file(ref_file, ref_len, stride, vectorizer)
+        cls = Int8FlatIndex if index_type == "INT8FLAT" else FlatIndex
+        engine = cls.build(embeddings, device)
+        n_vects, dim = embeddings.shape
+    if n_vects == 0:
+        raise ValueError(f"No sequences found in file: {ref_file}")
+
+    basename = os.path.basename(os.path.normpath(index_prefix))
+    config = {
+        "index_type": index_type,
+        "stride": stride,
+        "ref_len": ref_len,
+        "n_vects": int(n_vects),
+        "dim": int(dim),
+        "M_hnsw": cfg.m_hnsw,
+        "EFC": cfg.efc,
+        "M_pq": cfg.m_pq,
+        "nbits": cfg.nbits,
+        "index_file": os.path.join(index_prefix, basename + ".index"),
+    }
+    os.makedirs(index_prefix, exist_ok=True)
+    engine.save(index_prefix)
+    save_config(config, index_prefix)  # last: config.txt marks a complete build
+    return config

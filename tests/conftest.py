@@ -26,6 +26,12 @@ import pytest  # noqa: E402
 DATA = pathlib.Path(__file__).parent / "data"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips without one)"
+    )
+
+
 @pytest.fixture(scope="session")
 def data_dir() -> pathlib.Path:
     return DATA

@@ -1,0 +1,117 @@
+"""The whole slice on the fixture: the port's CLI (build-index -> pipeline)
+against the JAX package's CLI, and the port's freedom from jax."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from deepreadmapper_tpu.io import fastq
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads per test process: the suite runs in parallel
+    processes, and the plain GRU's 123-step loop of small ops slows down
+    badly when every process starts a thread per core."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _truth_hits(indices, names, slack=2):
+    hits = 0
+    for row, name in zip(indices.astype(np.int64), names):
+        pos = int(name.split("_")[1]) - 1
+        hits += bool(np.any(np.abs(row // 2 - pos) <= slack))
+    return hits
+
+
+def _run_both(data_dir, tmp_path, build_extra=(), pipe_extra=()):
+    from deepreadmapper_tpu import cli as jcli
+    from deepreadmapper_tpu_torch import cli as tcli
+
+    fna = str(data_dir / "ecoli_150.fna")
+    fq = str(data_dir / "test_data.fastq")
+    out = {}
+    for tag, cli in (("jax", jcli), ("torch", tcli)):
+        idx, res = str(tmp_path / f"{tag}_idx"), str(tmp_path / f"{tag}_out")
+        assert cli.main(["build-index", fna, idx, "150", *build_extra]) == 0
+        assert cli.main(["pipeline", idx, fq, fna, "128", "128", "5", res,
+                         *pipe_extra]) == 0
+        out[tag] = (np.load(os.path.join(res, "indices.npy")).astype(np.int64),
+                    np.load(os.path.join(res, "distances.npy")),
+                    res)
+    _, names = fastq.parse_fastq(fq)
+    return out, names
+
+
+def test_slice_matches_jax_cli(data_dir, tmp_path):
+    out, names = _run_both(data_dir, tmp_path)
+    (ji, jd, jres), (ti, td, tres) = out["jax"], out["torch"]
+    assert ti.shape == ji.shape == (150, 128)
+    assert td.dtype == jd.dtype == np.float32
+    hj, ht = _truth_hits(ji, names), _truth_hits(ti, names)
+    assert ht >= 135 and abs(ht - hj) <= 1, (ht, hj)
+    # top-1 agrees wherever the JAX result is not a tie at the top
+    clear = jd[:, 0] != jd[:, 1]
+    np.testing.assert_array_equal(ti[clear, 0], ji[clear, 0])
+    # tie-aware recall@128: every returned candidate is within the JAX
+    # k-th distance (int8 scores tie in classes; set overlap is not a test)
+    assert np.mean(td <= jd[:, -1:] * (1 + 1e-6)) == 1.0
+    with open(os.path.join(tres, "results.sam")) as f:
+        sam = [ln for ln in f if not ln.startswith("@")]
+    assert len(sam) == 150 * 128
+
+
+def test_dense_rerank_matches_jax_cli(data_dir, tmp_path):
+    out, _ = _run_both(data_dir, tmp_path, ("--index-type", "FLAT"),
+                       ("--dense-rerank",))
+    (ji, jd, _), (ti, td, _) = out["jax"], out["torch"]
+    np.testing.assert_allclose(td, jd, rtol=1e-4, atol=1e-4)
+    gap = np.diff(jd, axis=1) > 1e-4  # order is decided where neighbours differ
+    clear = np.concatenate([gap[:, :1], gap[:, :-1] & gap[:, 1:], gap[:, -1:]], 1)
+    np.testing.assert_array_equal(ti[clear], ji[clear])
+
+
+def test_cli_refuses_unported_features(data_dir, tmp_path):
+    from deepreadmapper_tpu_torch import cli
+
+    fna = str(data_dir / "ecoli_150.fna")
+    for argv in (
+        ["build-index", fna, str(tmp_path / "a"), "150", "--index-type", "PQFLAT"],
+        ["build-index", fna, str(tmp_path / "a"), "150", "--resume"],
+        ["build-index", fna, str(tmp_path / "a"), "150", "--shards", "2"],
+        ["pipeline", str(tmp_path / "a"), fna, fna, "--mapq"],
+        ["pipeline", str(tmp_path / "a"), fna, fna, "--rerank", "sw"],
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            cli.main(argv)
+
+
+def test_port_cli_never_imports_jax(data_dir, tmp_path):
+    """build-index -> pipeline through the port's CLI in a fresh process,
+    then assert jax was never imported."""
+    code = (
+        "import sys\n"
+        "from deepreadmapper_tpu_torch import cli\n"
+        f"fna, fq, d = {str(data_dir / 'ecoli_150.fna')!r}, "
+        f"{str(data_dir / 'test_data.fastq')!r}, {str(tmp_path)!r}\n"
+        "assert cli.main(['build-index', fna, d + '/idx', '150']) == 0\n"
+        "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '128', '5',"
+        " d + '/out']) == 0\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('NO-JAX-OK')\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO-JAX-OK" in proc.stdout
+    assert os.path.exists(tmp_path / "out" / "indices.npy")
