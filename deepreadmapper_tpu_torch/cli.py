@@ -27,14 +27,14 @@ _PIPELINE_UNPORTED_VALUED = (
     "--paired2", "--read-group", "--profile", "--lr-max-chunks",
     "--max-isize", "--min-isize",
 )
-_BUILD_UNPORTED = ("--resume", "--distributed", "--opq")
+_BUILD_UNPORTED = ("--resume", "--distributed")
 _BUILD_UNPORTED_VALUED = (
     "--weights", "--shards", "--nlist", "--level-mode", "--build-mode",
 )
 
 
 def _add_pipeline(sub):
-    p = sub.add_parser("pipeline", help="full search pipeline (L2 path)")
+    p = sub.add_parser("pipeline", help="full search pipeline")
     p.add_argument("index_prefix")
     p.add_argument("query_file")
     p.add_argument("ref_file")
@@ -69,7 +69,10 @@ def _add_build(sub):
     p.add_argument("EFC", nargs="?", type=int, default=200)
     p.add_argument("--index-type", default="INT8FLAT",
                    help="INT8FLAT (default: exhaustive int8 scan) | FLAT "
-                        "(exact fp32); other engines are not ported yet")
+                        "(exact fp32) | PQFLAT (exhaustive PQ scan, 8 B/vector "
+                        "at M_pq 8); other engines are not ported yet")
+    p.add_argument("--opq", action="store_true",
+                   help="learn an OPQ rotation before PQ (PQFLAT)")
     for flag in _BUILD_UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
     for flag in _BUILD_UNPORTED_VALUED:
@@ -133,6 +136,7 @@ def main(argv=None) -> int:
             nbits=args.nbits,
             m_hnsw=args.M_hnsw,
             efc=args.EFC,
+            opq=args.opq,
         )
         config = build_index(
             args.ref_file,

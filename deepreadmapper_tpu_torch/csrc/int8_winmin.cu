@@ -26,27 +26,13 @@
 // WPB consecutive windows.  Each 128-row slab of a window is staged in
 // shared memory (16 KB) with its masked norms; every thread then reads the
 // slab as broadcasts, so each row is fetched from device memory once per
-// block and scored against 128 queries.  Rows are visited in ascending order
-// with a strict '<', so the lowest row wins ties.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// block and scored against 128 queries (winmin.cuh, shared with
+// pq_winmin.cu).
+#include "winmin.cuh"
 
 namespace {
 
-constexpr int D = 128;                // bytes per row (embedding dim)
-constexpr int V = D / 16;             // int4 vectors per row
-constexpr int QTILE = 128;            // queries per block, one per thread
-constexpr int SLAB = 128;             // rows staged in shared memory at once
-constexpr int WPB = 8;                // windows per block
-constexpr int PITCH = V + 1;          // padded row pitch (int4) for the norm pass
-constexpr float BIG = 3.4e38f;
-
-__device__ __forceinline__ int dot16(const int4 a, const int4 b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  return __dp4a(a.w, b.w, acc);
-}
+using namespace winmin;
 
 __global__ void __launch_bounds__(QTILE)
 int8_winmin_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ r8,
@@ -58,9 +44,7 @@ int8_winmin_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ r8,
   const int tid = threadIdx.x;
   const int q = blockIdx.x * QTILE + tid;
   int4 qv[V];
-  const int4* qrow = reinterpret_cast<const int4*>(q8 + (size_t)q * D);
-#pragma unroll
-  for (int c = 0; c < V; ++c) qv[c] = qrow[c];
+  load_query(q8, q, qv);
 
   const int win0 = blockIdx.y * WPB;
   const int win1 = min(win0 + WPB, nwin);
@@ -73,26 +57,9 @@ int8_winmin_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ r8,
       for (int i = tid; i < SLAB * V; i += QTILE)
         rows[(i / V) * PITCH + i % V] = src[i];
       __syncthreads();
-      {
-        int nrm = 0;
-#pragma unroll
-        for (int c = 0; c < V; ++c) {
-          const int4 v = rows[tid * PITCH + c];
-          nrm = dot16(v, v, nrm);
-        }
-        rn[tid] = (row0 + tid < ntotal) ? (float)nrm : BIG;
-      }
+      rn[tid] = slab_norm(rows, tid, row0, ntotal);
       __syncthreads();
-      for (int i = 0; i < SLAB; ++i) {
-        int acc = 0;
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc = dot16(rows[i * PITCH + c], qv[c], acc);
-        const float s = __fmaf_rn(-ratio2, (float)acc, rn[i]);
-        if (s < best) {
-          best = s;
-          best_row = row0 + i;
-        }
-      }
+      slab_scan(rows, rn, qv, ratio2, row0, best, best_row);
     }
     vals[(size_t)win * qp + q] = best;
     args[(size_t)win * qp + q] = best_row;
@@ -106,7 +73,6 @@ int8_winmin_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ r8,
 extern "C" int int8_winmin(const void* q8, const void* r8, void* vals,
                            void* args, int qp, int np, int w, int ntotal,
                            float ratio2, void* stream) {
-  static_assert(QTILE == SLAB, "the norm pass gives each thread one slab row");
   const int nwin = np / w;
   const dim3 grid(qp / QTILE, (nwin + WPB - 1) / WPB);
   int8_winmin_kernel<<<grid, QTILE, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -56,13 +56,13 @@ def query_scale_ratio(queries: np.ndarray, code_scale: float):
     return sq, np.float32(sq / sc)
 
 
-def _int8_topk(q8: torch.Tensor, r8: torch.Tensor, rn: torch.Tensor,
-               ntotal: int, k: int, chunk: int, ratio=1.0):
-    """Exact top-k in the quantized space.  q8 [Q,D] int8, r8 [N,D] int8
-    (N padded to a chunk multiple), rn [N] int32 row norms.  Scores
-    r^2*qn + rn - 2r*(q8.r8) with r = sq/sc, rounded as the JAX package's
-    XLA computes them (r^2*qn + rn in fp32, then one fused multiply-subtract)
-    so ratio != 1 gives the same bits; at ratio 1 every term is exact."""
+def _int8_topk(q8: torch.Tensor, chunks, ntotal: int, k: int, ratio=1.0):
+    """Exact top-k in the quantized space.  q8 [Q,D] int8; chunks yields
+    (first row, rows [C,D] int8, row norms [C] int32) over the padded rows
+    in order.  Scores r^2*qn + rn - 2r*(q8.r8) with r = sq/sc, rounded as
+    the JAX package's XLA computes them (r^2*qn + rn in fp32, then one fused
+    multiply-subtract) so ratio != 1 gives the same bits; at ratio 1 every
+    term is exact."""
     dev = q8.device
     q32 = q8.to(torch.int32)
     qn = torch.sum(q32 * q32, dim=-1, dtype=torch.int32).to(torch.float32)
@@ -70,10 +70,9 @@ def _int8_topk(q8: torch.Tensor, r8: torch.Tensor, rn: torch.Tensor,
     r2 = float(2.0 * np.float32(ratio))
     qf = q8.to(torch.float32)
     best_d = best_i = None
-    for c0 in range(0, r8.shape[0], chunk):
-        rc = r8[c0 : c0 + chunk]
+    for c0, rc, rnc in chunks:
         dot = qf @ rc.to(torch.float32).T  # [Q, chunk], exact integers
-        base = r * r * qn[:, None] + rn[c0 : c0 + chunk][None, :].to(torch.float32)
+        base = r * r * qn[:, None] + rnc[None, :].to(torch.float32)
         scores = sk.fused_score(base, r2, dot)
         ids = torch.arange(c0, c0 + rc.shape[0], device=dev)
         scores = torch.where(ids[None, :] < ntotal, scores, _BIGF)
@@ -84,6 +83,54 @@ def _int8_topk(q8: torch.Tensor, r8: torch.Tensor, rn: torch.Tensor,
         else:
             best_d, best_i = merge_smallest_k(best_d, best_i, d, i, k)
     return best_d, best_i
+
+
+def search_quantized(queries: np.ndarray, k: int, ntotal: int, code_scale: float,
+                     device: torch.device, fused, chunks, q_batch: int = 8192):
+    """The search loop shared by the int8-valued scans (INT8FLAT, PQFLAT).
+
+    Queries quantize with their own scale when the batch exceeds the code
+    scale (query_scale_ratio; the ratio folds into the score) and run in
+    q_batch slices.  fused(q8, k, ratio) -> (rn - 2r q.r, ids) is the
+    window-min scan over the store; when it is None, chunks() yields the
+    (first row, int8 rows, norms) chunks of the exact scan.  Returns
+    (ids [Q, k] int64, fp32 squared-L2 estimates [Q, k]); past ntotal the
+    columns are -1 / inf."""
+    nq = queries.shape[0]
+    if ntotal == 0:
+        return (np.full((nq, k), -1, np.int64), np.full((nq, k), np.inf, np.float32))
+    k_eff = min(k, ntotal)
+    sq, ratio = query_scale_ratio(queries, code_scale)
+    q8_all = quantize_host(queries, sq)
+    pending = []
+    for s in range(0, nq, q_batch):
+        e = min(s + q_batch, nq)
+        qb = q8_all[s:e]
+        if fused is not None:
+            width = q_batch if nq > q_batch else (e - s + (-(e - s)) % sk.QT)
+            if qb.shape[0] < width:
+                qb = np.pad(qb, ((0, width - qb.shape[0]), (0, 0)))
+            res = fused(torch.from_numpy(qb).to(device), k_eff, ratio)
+        else:
+            res = _int8_topk(torch.from_numpy(qb).to(device), chunks(), ntotal,
+                             k_eff, ratio)
+        pending.append((s, e, res))
+    d = np.empty((nq, k_eff), np.float32)
+    i = np.empty((nq, k_eff), np.int64)
+    s2 = np.float32(code_scale) ** 2
+    qn_all = (q8_all.astype(np.int64) ** 2).sum(1).astype(np.float32)
+    for s, e, (db, ib) in pending:
+        # quantized-space scores -> fp32 squared L2 estimate; the fused
+        # scan returns rn - 2(sq/sc) q.r, so add the scaled query norm
+        db = db.cpu().numpy()[: e - s]
+        if fused is not None:
+            db = db + (ratio * ratio) * qn_all[s:e, None]
+        d[s:e] = db * s2
+        i[s:e] = ib.cpu().numpy()[: e - s]
+    if k_eff < k:
+        d = np.pad(d, ((0, 0), (0, k - k_eff)), constant_values=np.inf)
+        i = np.pad(i, ((0, 0), (0, k - k_eff)), constant_values=-1)
+    return i, d
 
 
 @register_index("INT8FLAT")
@@ -142,58 +189,22 @@ class Int8FlatIndex:
         """ef accepted for interface parity; an exhaustive scan ignores it.
         exact=True forces the unfused full-score path."""
         n = self.ntotal
-        queries = np.asarray(queries, np.float32)
-        if n == 0:
-            return (
-                np.full((queries.shape[0], k), -1, np.int64),
-                np.full((queries.shape[0], k), np.inf, np.float32),
-            )
-        k_eff = min(k, n)
-        c = self._device()
-        np_ = int(c.shape[0])
-        use_fused = not exact and sk.can_fuse(n, np_, k_eff, self.device)
-        sq, ratio = query_scale_ratio(queries, self.scale)
-        q8_all = quantize_host(queries, sq)
-        nq = q8_all.shape[0]
-        qb_size = self._Q_BATCH
-        pending = []
-        if use_fused:
-            chunk = sk.choose_chunk(np_)
-            qn_all = (q8_all.astype(np.int64) ** 2).sum(1).astype(np.float32)
-            for s in range(0, nq, qb_size):
-                e = min(s + qb_size, nq)
-                qb = q8_all[s:e]
-                width = qb_size if nq > qb_size else (e - s + (-(e - s)) % sk.QT)
-                if qb.shape[0] < width:
-                    qb = np.pad(qb, ((0, width - qb.shape[0]), (0, 0)))
-                q8 = torch.from_numpy(qb).to(self.device)
-                pending.append(
-                    (s, e, sk.fused_scan_topk(q8, c, n, k_eff, chunk, ratio=ratio))
-                )
-        else:
+        c = self._device() if n else None
+        np_ = int(c.shape[0]) if n else 0
+        use_fused = not exact and sk.can_fuse(n, np_, min(k, n), self.device)
+
+        def fused(q8, k_eff, ratio):
+            return sk.fused_scan_topk(q8, c, n, k_eff, sk.choose_chunk(np_), ratio=ratio)
+
+        def chunks():
             rn = self._device_norms()
-            eff_chunk = min(self._CHUNK, np_)
-            for s in range(0, nq, qb_size):
-                e = min(s + qb_size, nq)
-                q8 = torch.from_numpy(q8_all[s:e]).to(self.device)
-                pending.append(
-                    (s, e, _int8_topk(q8, c, rn, n, k_eff, eff_chunk, ratio))
-                )
-        d = np.empty((nq, k_eff), np.float32)
-        i = np.empty((nq, k_eff), np.int64)
-        s2 = np.float32(self.scale) ** 2
-        for s, e, (db, ib) in pending:
-            # quantized-space scores -> fp32 squared L2 estimate; the fused
-            # scan returns rn - 2(sq/sc) q.r, so add the scaled query norm
-            db = db.cpu().numpy()[: e - s]
-            if use_fused:
-                db = db + (ratio * ratio) * qn_all[s:e, None]
-            d[s:e] = db * s2
-            i[s:e] = ib.cpu().numpy()[: e - s]
-        if k_eff < k:
-            d = np.pad(d, ((0, 0), (0, k - k_eff)), constant_values=np.inf)
-            i = np.pad(i, ((0, 0), (0, k - k_eff)), constant_values=-1)
-        return i, d
+            step = min(self._CHUNK, np_)
+            return ((c0, c[c0 : c0 + step], rn[c0 : c0 + step])
+                    for c0 in range(0, np_, step))
+
+        return search_quantized(np.asarray(queries, np.float32), k, n, self.scale,
+                                self.device, fused if use_fused else None, chunks,
+                                self._Q_BATCH)
 
     def save(self, index_prefix: str) -> None:
         os.makedirs(index_prefix, exist_ok=True)

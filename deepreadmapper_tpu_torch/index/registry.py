@@ -27,7 +27,7 @@ def load_index(index_prefix: str, device: torch.device | str | None = None):
     """Load an index directory (config.txt + engine files); returns
     (engine, config)."""
     # the engines register themselves on import
-    from deepreadmapper_tpu_torch.index import flat, int8_flat  # noqa: F401
+    from deepreadmapper_tpu_torch.index import flat, int8_flat, pq_flat  # noqa: F401
 
     config_path = os.path.join(index_prefix, "config.txt")
     if not os.path.exists(config_path):

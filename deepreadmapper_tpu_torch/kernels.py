@@ -128,8 +128,12 @@ class CudaKernel:
 GRU_FWD = CudaKernel("gru_fwd", [_P] * 7 + [_I] * 5 + [_P])
 # int8_winmin(q8, r8, vals, args, qp, np, w, ntotal, ratio2, stream)
 INT8_WINMIN = CudaKernel("int8_winmin", [_P] * 4 + [_I] * 4 + [_F, _P])
+# sw_score(a, alen, b, blen, out, np, lr, lc, stream)
+SW_SCORE = CudaKernel("sw_score", [_P] * 5 + [_I] * 3 + [_P])
+# pq_winmin(q8, codes, cent8, vals, args, qp, np, w, ntotal, ratio2, m, ksub, stream)
+PQ_WINMIN = CudaKernel("pq_winmin", [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P])
 
-ALL = (GRU_FWD, INT8_WINMIN)
+ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, PQ_WINMIN)
 
 
 def reset_counts() -> None:

@@ -1,6 +1,9 @@
-"""Fused int8 scan: matmul + windowed top-1, then a top-k over the windows.
+"""Fused int8 / PQ scans: matmul + windowed top-1, then a top-k over the
+windows.
 
-Counterpart of the int8 half of ``deepreadmapper_tpu/ops/scan_kernel.py``.
+Counterpart of ``deepreadmapper_tpu/ops/scan_kernel.py``.  The PQ scan
+rebuilds each row from its codes through the int8 codebook (exactly
+int8-valued) and then scores it as the int8 scan does.
 Each window of W rows keeps only (min score, lowest argmin row) per query,
 so the device writes [N/W, Q] instead of the [N, Q] score matrix; the
 per-query top-k then runs on that reduced array.  Scores are
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from deepreadmapper_tpu_torch import kernels
+from deepreadmapper_tpu_torch.ops.pq import reconstruct8
 from deepreadmapper_tpu_torch.ops.topk import merge_smallest_k, smallest_k
 
 QT = 512      # query padding unit of the fused path
@@ -149,21 +153,82 @@ def int8_winmin(q8, r8, ntotal: int, ratio2: float, w: int = W):
     return vals, args
 
 
+def pq_winmin_reference(q8, codes, cent8, ntotal: int, ratio2: float, w: int = W):
+    """Plain version of the PQ kernel: rebuild the int8 rows from codes
+    [Np, m] uint8 and the int8 codebook cent8 [m, ksub, 128/m], then the
+    int8 window-min scan.  Same outputs as int8_winmin_reference."""
+    return int8_winmin_reference(q8, reconstruct8(codes, cent8), ntotal, ratio2, w)
+
+
+def pq_winmin(q8, codes, cent8, ntotal: int, ratio2: float, w: int = W):
+    """The PQ window-min scan: csrc/pq_winmin.cu on CUDA tensors, the plain
+    version on CPU tensors.  Same contract as pq_winmin_reference; codes
+    must be < ksub."""
+    if q8.dtype != torch.int8 or codes.dtype != torch.uint8 or cent8.dtype != torch.int8:
+        raise TypeError(
+            f"pq_winmin takes int8 queries, uint8 codes and an int8 codebook, "
+            f"got {q8.dtype}, {codes.dtype}, {cent8.dtype}"
+        )
+    if q8.dim() != 2 or q8.shape[1] != D or codes.dim() != 2 or cent8.dim() != 3:
+        raise ValueError(
+            f"pq_winmin needs q8 [Qp, {D}], codes [Np, m], cent8 [m, ksub, dsub]; "
+            f"got {tuple(q8.shape)}, {tuple(codes.shape)}, {tuple(cent8.shape)}"
+        )
+    m, ksub, dsub = cent8.shape
+    if codes.shape[1] != m or m * dsub != D or ksub > 256:
+        raise ValueError(f"codes {tuple(codes.shape)} do not fit cent8 {tuple(cent8.shape)}")
+    qp, np_ = q8.shape[0], codes.shape[0]
+    if w % _KR or np_ % w:
+        raise ValueError(f"need w % {_KR} == 0 and Np % w == 0 (w={w}, Np={np_})")
+    if not (q8.device == codes.device == cent8.device):
+        raise ValueError(f"q8 on {q8.device}, codes on {codes.device}, cent8 on {cent8.device}")
+    if q8.device.type == "cpu":
+        return pq_winmin_reference(q8, codes, cent8, ntotal, ratio2, w)
+    if q8.device.type != "cuda":
+        raise ValueError(f"unsupported device {q8.device}")
+    if qp % _KQ:
+        raise ValueError(f"pq_winmin kernel needs Qp % {_KQ} == 0, got {qp}")
+    if dsub % 4:
+        raise ValueError(f"pq_winmin kernel needs 128/m a multiple of 4, got m={m}")
+    nwin = np_ // w
+    if -(-nwin // _KWPB) > 65535:
+        raise ValueError(f"pq_winmin grid too large for Np={np_}, w={w}")
+    q8, codes, cent8 = q8.contiguous(), codes.contiguous(), cent8.contiguous()
+    vals = torch.empty((nwin, qp), dtype=torch.float32, device=q8.device)
+    args = torch.empty((nwin, qp), dtype=torch.int32, device=q8.device)
+    if qp == 0 or nwin == 0:
+        return vals, args
+    nt = max(min(int(ntotal), np_), -1)
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream(q8.device).cuda_stream
+        kernels.PQ_WINMIN.launch(
+            q8.data_ptr(), codes.data_ptr(), cent8.data_ptr(), vals.data_ptr(),
+            args.data_ptr(), qp, np_, w, nt, float(ratio2), m, ksub, stream,
+        )
+    return vals, args
+
+
 def fused_scan_topk(q8, store, ntotal: int, k: int, chunk: int, ratio=1.0,
-                    w: int = W, winmin=int8_winmin):
+                    w: int = W, winmin=None, cent8=None):
     """Chunked fused scan with an exact cross-chunk merge.
 
-    q8 [Qp, 128] int8 queries; store [Np, 128] int8 codes with Np % chunk == 0
-    and chunk % w == 0; ntotal = count of real rows (the rest is padding,
-    masked in the scan).  Returns (scores [Qp, k] f32 = rn - 2 ratio q.r
-    ascending, the caller adds the query norm; ids [Qp, k] int64).  The
-    top-k over window minima is exact and stable (the lower window wins
-    ties).  winmin selects the scan (the kernel wrapper by default)."""
+    q8 [Qp, 128] int8 queries; store [Np, 128] int8 rows, or with cent8
+    (the int8 codebook [m, ksub, 128/m]) [Np, m] uint8 PQ codes; Np % chunk
+    == 0 and chunk % w == 0; ntotal = count of real rows (the rest is
+    padding, masked in the scan).  Returns (scores [Qp, k] f32 = rn - 2
+    ratio q.r ascending, the caller adds the query norm; ids [Qp, k] int64).
+    The top-k over window minima is exact and stable (the lower window wins
+    ties).  winmin selects the scan (default: the kernel wrapper of the
+    store's kind, int8_winmin or pq_winmin), called as
+    winmin(q8, rows[, cent8], ntotal, ratio2, w)."""
     np_ = store.shape[0]
     ratio2 = 2.0 * float(np.float32(ratio))  # exact: the kernel takes fp32
+    if winmin is None:
+        winmin = int8_winmin if cent8 is None else pq_winmin
+    extra = () if cent8 is None else (cent8,)
     best_d = best_i = None
     for c0 in range(0, np_, chunk):
-        vals, args = winmin(q8, store[c0 : c0 + chunk], ntotal - c0, ratio2, w)
+        vals, args = winmin(q8, store[c0 : c0 + chunk], *extra, ntotal - c0, ratio2, w)
         # [chunk/W, Qp] -> [Qp, chunk/W]
         d, pos = smallest_k(vals.T, k)
         i = torch.gather(args.T, 1, pos).to(torch.int64) + c0

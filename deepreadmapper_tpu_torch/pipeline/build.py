@@ -1,9 +1,10 @@
 """Index build: ref input -> window stream -> 2-bit wire -> encoder ->
-(int8 quantization on the device) -> engine -> config.txt + engine files.
+(int8 quantization or PQ encoding on the device) -> engine -> config.txt +
+engine files.
 
-Counterpart of ``deepreadmapper_tpu/pipeline/build.py`` for the FLAT and
-INT8FLAT engines.  The on-disk result is the JAX package's: either package
-loads an index the other built.
+Counterpart of ``deepreadmapper_tpu/pipeline/build.py`` for the FLAT,
+INT8FLAT and PQFLAT engines.  The on-disk result is the JAX package's:
+either package loads an index the other built.
 """
 
 from __future__ import annotations
@@ -27,10 +28,12 @@ from deepreadmapper_tpu.utils.progress import Progress
 from deepreadmapper_tpu_torch import not_ported
 from deepreadmapper_tpu_torch.index.flat import FlatIndex
 from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex, quantize
+from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
 from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer
+from deepreadmapper_tpu_torch.ops import pq as pq_ops
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 
-PORTED_ENGINES = ("INT8FLAT", "FLAT")
+PORTED_ENGINES = ("INT8FLAT", "FLAT", "PQFLAT")
 INT8_SCALE = 1.0 / 127.0  # encoder outputs are tanh-bounded in [-1, 1]
 
 
@@ -115,6 +118,43 @@ def embed_input_file(path: str, ref_len: int, stride: int,
     raise ValueError(f"Unsupported reference input: {path}")
 
 
+def _pq_stream_encode(records, ref_len: int, stride: int, cfg: BuildConfig,
+                      vectorizer: Vectorizer):
+    """Two-pass stream-encode of a FASTA reference for PQFLAT.
+
+    Pass A embeds an evenly spaced window sample (the reference trains on a
+    50% evenly spaced sample; capped at 262,144 vectors, ample for 8 x 256
+    centroids, so the [m, n_train, ksub] fp32 assignment tensor stays ~2 GB)
+    and trains PQ or OPQ on the device.  Pass B re-streams every window and
+    encodes each embedding chunk to codes on the device, so only the
+    8 B/window codes reach the host.  Returns (codes [N, m] uint8,
+    codebook, rotation or None)."""
+    nv_est = sum(2 * fasta_io.num_windows(len(r), ref_len, stride) for r in records)
+    target = max(1, min(int(nv_est * cfg.sample_rate), 262_144))
+    # the sample counts both strands like nv_est; ceil so it never exceeds
+    # ~target (floor could double it)
+    step = max(1, -(-nv_est // target))
+    train = embed_fasta_windows(records, ref_len, stride * step, vectorizer,
+                                device_out=True)
+    if train.shape[0] == 0:
+        raise ValueError("No sequences found in the reference")
+    rot = rot_dev = None
+    if cfg.opq:
+        cb, rot = pq_ops.train_opq(train, m=cfg.m_pq, nbits=cfg.nbits,
+                                   iters=cfg.opq_iters, seed=cfg.seed,
+                                   device=vectorizer.device)
+        rot_dev = torch.from_numpy(rot).to(vectorizer.device)
+    else:
+        cb = pq_ops.train_pq(train, m=cfg.m_pq, nbits=cfg.nbits,
+                             iters=cfg.kmeans_iters, seed=cfg.seed)
+    del train
+    codes = embed_fasta_windows(
+        records, ref_len, stride, vectorizer,
+        chunk_transform=lambda e: pq_ops.encode_device(e, cb, rot_dev),
+    )
+    return codes, cb, rot
+
+
 def build_index(
     ref_file: str,
     index_prefix: str,
@@ -128,15 +168,31 @@ def build_index(
     if index_type not in PORTED_ENGINES:
         raise not_ported(f"index type {index_type}")
     cfg = build_cfg or BuildConfig(stride=stride)
+    if cfg.opq and index_type != "PQFLAT":
+        print(f"[BUILD INDEX] WARNING: --opq only applies to PQFLAT/IVFPQ; "
+              f"ignored for {index_type}")
     vectorizer = Vectorizer(device=device)
     ext = true_ext(ref_file)
     if ext in FASTA_EXTS:
         nv = estimate_window_count(ref_file, ref_len, stride)  # both strands
-        per_vec = 128 if index_type == "INT8FLAT" else 512
+        if index_type == "PQFLAT":
+            total = nv * cfg.m_pq + (1 << cfg.nbits) * OUT_SIZE * 4
+            detail = f"pq codes {nv * cfg.m_pq / 1e6:.1f}"
+        elif index_type == "INT8FLAT":
+            total = nv * OUT_SIZE
+            detail = f"int8 codes {total / 1e6:.1f}"
+        else:
+            total = nv * OUT_SIZE * 4
+            detail = f"fp32 vectors {total / 1e6:.1f}"
         print(f"[BUILD INDEX] ~{nv} vectors; estimated index memory "
-              f"{nv * per_vec / 1e6:.1f} MB ({index_type})")
+              f"{total / 1e6:.1f} MB ({detail})")
 
-    if index_type == "INT8FLAT" and ext in FASTA_EXTS:
+    if index_type == "PQFLAT" and ext in FASTA_EXTS:
+        records = fasta_io.parse_fasta_records(ref_file)
+        codes, cb, rot = _pq_stream_encode(records, ref_len, stride, cfg, vectorizer)
+        engine = PQFlatIndex(codes, cb, codes.shape[0], rot, device)
+        n_vects, dim = codes.shape[0], OUT_SIZE  # codes, not embeddings
+    elif index_type == "INT8FLAT" and ext in FASTA_EXTS:
         # Quantize every embedding chunk on the device before collection:
         # only the 128 B/window codes are downloaded.
         records = fasta_io.parse_fasta_records(ref_file)
@@ -148,8 +204,11 @@ def build_index(
         n_vects, dim = codes.shape
     else:
         embeddings = embed_input_file(ref_file, ref_len, stride, vectorizer)
-        cls = Int8FlatIndex if index_type == "INT8FLAT" else FlatIndex
-        engine = cls.build(embeddings, device)
+        if index_type == "PQFLAT":
+            engine = PQFlatIndex.build(embeddings, cfg, device)
+        else:
+            cls = Int8FlatIndex if index_type == "INT8FLAT" else FlatIndex
+            engine = cls.build(embeddings, device)
         n_vects, dim = embeddings.shape
     if n_vects == 0:
         raise ValueError(f"No sequences found in file: {ref_file}")

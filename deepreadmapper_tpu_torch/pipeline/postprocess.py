@@ -1,18 +1,27 @@
-"""Candidate post-processing on the L2 path: dense passthrough, or sparse
-expansion + dedup + re-embed + sqrt-L2 rerank.
+"""Candidate post-processing: the L2 path (dense passthrough, or sparse
+expansion + dedup + re-embed + sqrt-L2 rerank) and the Smith-Waterman
+rerank.
 
-Counterpart of ``deepreadmapper_tpu/pipeline/postprocess.py`` (L2 path only;
-the Smith-Waterman rerank is not ported yet).  Semantics, including the
-deliberate divergences from the C++ reference documented there, are the
-same: clipped expansion slots are masked, not shifted.
+Counterpart of ``deepreadmapper_tpu/pipeline/postprocess.py``.  Semantics,
+including the deliberate divergences from the C++ reference documented
+there, are the same: clipped expansion slots are masked, not shifted.  One
+divergence from the JAX package: its SW rerank sorts ``-scores`` in int32,
+where the INT32_MIN of an invalid slot negates to itself, so invalid slots
+sort FIRST; here they sort last.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from deepreadmapper_tpu_torch import default_device
+from deepreadmapper_tpu_torch.ops.sw import sw_scores
 from deepreadmapper_tpu_torch.ops.topk import as_f32, smallest_k
+
+_INT32_MIN = np.iinfo(np.int32).min
 
 
 # Copied from deepreadmapper_tpu/pipeline/postprocess.py (that module imports jax).
@@ -95,6 +104,85 @@ def check_invariant(k: int, k_clusters: int, stride: int) -> None:
                 f"{n_cands} candidates per query. Reduce k or raise "
                 "k_clusters."
             )
+
+
+def post_process_sw(
+    neighbors: np.ndarray,
+    query_mat: np.ndarray,
+    query_lens: np.ndarray,
+    fetch_windows,
+    stride: int,
+    k: int,
+    k_clusters: int,
+    bound: int,
+    query_chunk: int = 512,
+    sparse_off: np.ndarray | None = None,
+    dense_off: np.ndarray | None = None,
+    device: torch.device | str | None = None,
+    timings: dict | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Smith-Waterman post-processing (reference post_process_sw_*): expand
+    sparse hits, score every candidate slot by SW against the wrapped query
+    (windows are ``a``, queries ``b``), keep the top k by score descending.
+    There is no dense short-circuit: at stride 1 the k_clusters hits are
+    reranked.
+
+    query_mat/query_lens: wrapped query bytes + true lengths.
+    fetch_windows: callable(ids [M]) -> (bytes [M, W], lens [M]) unwrapped
+      candidate windows (host).
+    device: where the scores run (default: the CUDA device when present).
+    timings: if given, gets host seconds under "fetch" (window fetch and
+      pair layout), "sw" (upload, scoring, download) and "sort".
+
+    Invalid slots score INT32_MIN and sort last; the sort is stable, so
+    ties keep candidate order.  Returns (final_ids [Q, k] int64,
+    final_scores [Q, k] int32).
+    """
+    check_invariant(k, k_clusters, stride)
+    if stride == 1:
+        if k > k_clusters:
+            raise ValueError(
+                f"Final k={k} > k_clusters={k_clusters}: the dense SW rerank "
+                "has only k_clusters candidates per query."
+            )
+        cand_ids = neighbors[:, :k_clusters].astype(np.int64)
+    else:
+        cand_ids, _ = expand_candidates(
+            neighbors, stride, bound, k_clusters, sparse_off, dense_off
+        )
+    dev = torch.device(device) if device is not None else default_device()
+    t = {"fetch": 0.0, "sw": 0.0, "sort": 0.0}
+    q, c = cand_ids.shape
+    out_ids = np.empty((q, k), dtype=np.int64)
+    out_scores = np.empty((q, k), dtype=np.int32)
+    for start in range(0, q, query_chunk):
+        t0 = time.perf_counter()
+        end = min(start + query_chunk, q)
+        ids_b = cand_ids[start:end]
+        flat_ids = ids_b.ravel()
+        valid = flat_ids >= 0
+        w_mat, w_lens = fetch_windows(np.where(valid, flat_ids, 0))
+        qa = np.repeat(query_mat[start:end], c, axis=0)
+        ql = np.repeat(query_lens[start:end], c, axis=0)
+        t1 = time.perf_counter()
+        scores = sw_scores(
+            torch.from_numpy(np.ascontiguousarray(w_mat)).to(dev),
+            torch.from_numpy(np.asarray(w_lens)).to(dev),
+            torch.from_numpy(qa).to(dev),
+            torch.from_numpy(np.asarray(ql)).to(dev),
+        ).cpu().numpy()
+        t2 = time.perf_counter()
+        scores = np.where(valid, scores, np.int32(_INT32_MIN)).reshape(end - start, c)
+        # int64 negation: -INT32_MIN does not wrap, so invalid slots sort last
+        order = np.argsort(-scores.astype(np.int64), axis=1, kind="stable")[:, :k]
+        out_scores[start:end] = np.take_along_axis(scores, order, axis=1)
+        out_ids[start:end] = np.take_along_axis(ids_b, order, axis=1)
+        t["fetch"] += t1 - t0
+        t["sw"] += t2 - t1
+        t["sort"] += time.perf_counter() - t2
+    if timings is not None:
+        timings.update(t)
+    return out_ids, out_scores
 
 
 def rerank_l2(query_emb: torch.Tensor, pool_emb: torch.Tensor,

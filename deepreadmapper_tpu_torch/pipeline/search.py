@@ -1,10 +1,10 @@
-"""End-to-end search pipeline on the L2 path.
+"""End-to-end search pipeline (L2 or Smith-Waterman rerank).
 
 Counterpart of ``deepreadmapper_tpu/pipeline/search.py``: index load ->
 query load/embed -> search -> post-process -> outputs.  indices.npy /
 distances.npy hold the RAW search results (or, with --dense-rerank at
-stride 1, the reranked ones), exactly as the JAX package writes them; SAM
-holds the post-processed candidates.
+stride 1 on the L2 path, the reranked ones), exactly as the JAX package
+writes them; SAM holds the post-processed candidates.
 """
 
 from __future__ import annotations
@@ -82,13 +82,17 @@ def run_pipeline(
     vectorizer: Vectorizer | None = None,
     device=None,
 ) -> dict:
-    """Run the pipeline on the L2 path; returns a timing/result summary.
+    """Run the pipeline; returns a timing/result summary.
 
+    rerank="l2" reranks sparse candidates by sqrt-L2 of re-embedded windows;
+    rerank="sw" reranks every candidate by Smith-Waterman score against the
+    read (at any stride), and the SAM holds the SW-ranked ids.
     dense_rerank=True re-embeds and exactly reranks the search candidates
-    on a dense (stride 1) index; indices.npy / distances.npy then hold the
-    reranked sqrt-L2 results."""
-    if rerank != "l2":
-        raise not_ported(f"--rerank {rerank}")
+    on a dense (stride 1) index on the L2 path; indices.npy / distances.npy
+    then hold the reranked sqrt-L2 results.  Otherwise they hold the raw
+    search results."""
+    if rerank not in ("l2", "sw"):
+        raise ValueError(f"unknown rerank {rerank!r} (l2 | sw)")
     if use_streaming:
         raise not_ported("use_streaming")
     scfg = SearchConfig()
@@ -117,9 +121,11 @@ def run_pipeline(
     os.makedirs(output_dir, exist_ok=True)
     sam_file = os.path.join(output_dir, "results.sam")
     have_seqs = query_seqs is not None
-    if dense_rerank and stride == 1 and not have_seqs:
-        print("[MAIN] WARNING: --dense-rerank ignored (precomputed query "
-              "embeddings carry no sequences); saving raw search results")
+    if dense_rerank and stride == 1 and (not have_seqs or rerank == "sw"):
+        print("[MAIN] WARNING: --dense-rerank ignored ("
+              + ("precomputed query embeddings carry no sequences"
+                 if not have_seqs else "SW rerank already reranks at stride 1")
+              + "); saving raw search results")
 
     t0 = time.time()
     final_ids = final_d = None
@@ -169,11 +175,29 @@ def run_pipeline(
                 wire = pack_wrapped_numpy(mat, lengths)
             return vectorizer.vectorize_wire(wire, device_out=True)
 
-        final_ids, final_d = pp.post_process_l2(
-            neighbors, distances, query_emb, embed_windows, stride, k,
-            k_clusters, bound, force_rerank=dense_rerank,
-            sparse_off=sparse_off, dense_off=dense_off,
-        )
+        if rerank == "sw":
+            def fetch_windows(ids: np.ndarray):
+                if multi:
+                    ids = fasta_io.translate_window_ids(ids, dense_off, base_off)
+                return fasta_io.fetch_windows_by_id(
+                    genome, ids, ref_len, max_len=ref_len, wrap=False
+                )
+
+            q_mat, q_lens = tok.strings_to_bytes(query_seqs)
+            sw_timings = {}
+            final_ids, final_d = pp.post_process_sw(
+                neighbors, q_mat, q_lens, fetch_windows, stride, k,
+                k_clusters, bound, sparse_off=sparse_off, dense_off=dense_off,
+                device=vectorizer.device, timings=sw_timings,
+            )
+            print(f"[MAIN] sw rerank: fetch {sw_timings['fetch']:.3f}s | "
+                  f"score {sw_timings['sw']:.3f}s | sort {sw_timings['sort']:.3f}s")
+        else:
+            final_ids, final_d = pp.post_process_l2(
+                neighbors, distances, query_emb, embed_windows, stride, k,
+                k_clusters, bound, force_rerank=dense_rerank,
+                sparse_off=sparse_off, dense_off=dense_off,
+            )
         if write_sam:
             pg = (f"pipeline {index_prefix} {query_file} ef={ef} k={k}"
                   f" k_clusters={k_clusters} rerank={rerank}"
@@ -185,7 +209,7 @@ def run_pipeline(
             )
     t_post = time.time() - t0
 
-    if dense_rerank and stride == 1 and final_d is not None:
+    if dense_rerank and stride == 1 and rerank != "sw" and final_d is not None:
         save_results(final_ids, final_d,
                      os.path.join(output_dir, "indices.npy"),
                      os.path.join(output_dir, "distances.npy"), k)

@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from deepreadmapper_tpu.io import fastq
 from deepreadmapper_tpu_torch import kernels
 from deepreadmapper_tpu_torch.models import gru
 from deepreadmapper_tpu_torch.ops import scan_kernel as sk
+from deepreadmapper_tpu_torch.ops import sw
 
 pytestmark = pytest.mark.gpu
 
@@ -84,11 +86,97 @@ def test_fused_scan_topk_kernel_matches_plain(cuda):
     assert torch.equal(d, dr) and torch.equal(i, ir)
 
 
+def _sw_pairs(p, seed=4):
+    """Random ACGTN windows [p, 150] and '<'-wrapped reads [p, 152] with
+    lengths that differ within warps, zero lengths and exact copies."""
+    rng = np.random.default_rng(seed)
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    a = acgtn[rng.choice(5, (p, 150), p=[0.24, 0.24, 0.24, 0.24, 0.04])]
+    b = acgtn[rng.choice(5, (p, 152), p=[0.24, 0.24, 0.24, 0.24, 0.04])]
+    b[:, 0], b[:, -1] = ord("<"), ord(">")
+    b[::3, 1:151] = a[::3]  # the read of its own window
+    la = np.full(p, 150)
+    lb = np.full(p, 152)
+    la[::7] = rng.integers(0, 151, la[::7].shape)
+    lb[::5] = rng.integers(0, 153, lb[::5].shape)
+    la[11], lb[12] = 0, 0
+    return [torch.from_numpy(x) for x in (a, la, b, lb)]
+
+
+def test_sw_kernel_matches_plain(cuda):
+    # P = 1000 is not a multiple of the kernel's 128 pairs per block
+    a, la, b, lb = (x.to(cuda) for x in _sw_pairs(1000))
+    before = kernels.SW_SCORE.launches
+    got = sw.sw_scores(a, la, b, lb)
+    assert kernels.SW_SCORE.launches == before + 1
+    want = sw.sw_scores_reference(a, la, b, lb)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got.max()) >= 150
+    empty = sw.sw_scores(a[:0], la[:0], b[:0], lb[:0])
+    assert empty.shape == (0,)
+
+
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (4, 8), (8, 6)])
+@pytest.mark.parametrize("ratio", [1.0, 1.3])
+def test_pq_winmin_kernel_matches_plain(cuda, m, nbits, ratio):
+    rng = np.random.default_rng(5)
+    codes = torch.tensor(rng.integers(0, 1 << nbits, (8192, m)), dtype=torch.uint8).to(cuda)
+    cent8 = torch.tensor(rng.integers(-127, 128, (m, 1 << nbits, 128 // m)),
+                         dtype=torch.int8).to(cuda)
+    q8 = torch.tensor(rng.integers(-127, 128, (640, 128)), dtype=torch.int8).to(cuda)
+    ratio2 = 2.0 * float(np.float32(ratio))
+    ntotal = 8192 - 333
+    before = kernels.PQ_WINMIN.launches
+    v, a = sk.pq_winmin(q8, codes, cent8, ntotal, ratio2)
+    assert kernels.PQ_WINMIN.launches == before + 1
+    vr, ar = sk.pq_winmin_reference(q8, codes, cent8, ntotal, ratio2)
+    assert torch.equal(v, vr) and torch.equal(a, ar)
+
+
+def test_fused_scan_topk_pq_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(6)
+    q8 = torch.tensor(rng.integers(-127, 128, (512, 128)), dtype=torch.int8).to(cuda)
+    codes = torch.tensor(rng.integers(0, 256, (4 * sk.CT, 8)), dtype=torch.uint8).to(cuda)
+    cent8 = torch.tensor(rng.integers(-127, 128, (8, 256, 16)), dtype=torch.int8).to(cuda)
+    args = (q8, codes, 4 * sk.CT - 1000, 64, sk.CT)
+    d, i = sk.fused_scan_topk(*args, ratio=1.1, cent8=cent8)
+    dr, ir = sk.fused_scan_topk(*args, ratio=1.1, cent8=cent8,
+                                winmin=sk.pq_winmin_reference)
+    assert torch.equal(d, dr) and torch.equal(i, ir)
+
+
+def test_pqflat_fused_search_matches_exact_top1(cuda):
+    from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
+    from deepreadmapper_tpu_torch.ops.pq import PQCodebook
+
+    rng = np.random.default_rng(7)
+    n = sk.MIN_FUSED_N + 5000
+    codes = rng.integers(0, 256, (n, 8)).astype(np.uint8)
+    cent = torch.tensor(rng.standard_normal((8, 256, 16)) * 0.3, dtype=torch.float32)
+    q = np.tanh(rng.standard_normal((300, 128))).astype(np.float32)
+    idx = PQFlatIndex(codes, PQCodebook(cent.to(cuda)), n, device=cuda)
+    before = kernels.PQ_WINMIN.launches
+    fi, fd = idx.search(q, 32)
+    assert kernels.PQ_WINMIN.launches > before  # the fused path ran
+    ei, ed = idx.search(q, 32, exact=True)
+    np.testing.assert_array_equal(fd[:, 0], ed[:, 0])
+    assert (fi < n).all()
+
+
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     q8 = torch.zeros((100, 128), dtype=torch.int8, device=cuda)  # Qp % 128 != 0
     r8 = torch.zeros((256, 128), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         sk.int8_winmin(q8, r8, 256, 2.0)
+    codes = torch.zeros((256, 8), dtype=torch.uint8, device=cuda)
+    cent8 = torch.zeros((8, 256, 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        sk.pq_winmin(q8, codes, cent8, 256, 2.0)
+    wide = torch.zeros((4, 600), dtype=torch.uint8, device=cuda)  # a rows > 512
+    n = torch.full((4,), 600, device=cuda)
+    with pytest.raises(ValueError):
+        sw.sw_scores(wide, n, wide, n)
     x, w, bzr, r, rbh = _gru_args(64, torch.float32, cuda, b=8, t_steps=3)
     with pytest.raises(TypeError):
         gru.gru_proj_seq(x.half(), w, bzr, r, rbh, False)
@@ -122,7 +210,6 @@ def test_int8flat_fused_search_matches_exact_top1(cuda):
 
 
 def test_pipeline_cli_on_cuda(cuda, data_dir, tmp_path):
-    from deepreadmapper_tpu.io import fastq
     from deepreadmapper_tpu_torch import cli
 
     fna = str(data_dir / "ecoli_150.fna")
@@ -139,3 +226,22 @@ def test_pipeline_cli_on_cuda(cuda, data_dir, tmp_path):
         for row, nm in zip(ids, names)
     )
     assert hits >= 135
+
+
+def test_pqflat_sw_pipeline_cli_on_cuda(cuda, data_dir, tmp_path):
+    from deepreadmapper_tpu_torch import cli
+
+    fna = str(data_dir / "ecoli_150.fna")
+    fq = str(data_dir / "test_data.fastq")
+    idx, out = str(tmp_path / "idx"), str(tmp_path / "out")
+    assert cli.main(["build-index", fna, idx, "150", "--index-type", "PQFLAT",
+                     "--opq"]) == 0
+    before = kernels.SW_SCORE.launches
+    assert cli.main(["pipeline", idx, fq, fna, "128", "10", "128", out,
+                     "--rerank", "sw"]) == 0
+    assert kernels.SW_SCORE.launches > before
+    with open(os.path.join(out, "results.sam")) as f:
+        prim = [ln.split("\t") for ln in f if not ln.startswith("@")][::10]
+    _, names = fastq.parse_fastq(fq)
+    top1 = sum(abs(int(r[3]) - int(nm.split("_")[1])) <= 2 for r, nm in zip(prim, names))
+    assert top1 >= 135

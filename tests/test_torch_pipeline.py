@@ -33,7 +33,8 @@ def _truth_hits(indices, names, slack=2):
     return hits
 
 
-def _run_both(data_dir, tmp_path, build_extra=(), pipe_extra=()):
+def _run_both(data_dir, tmp_path, build_extra=(), pipe_extra=(),
+              pipe_args=("128", "128", "5")):
     from deepreadmapper_tpu import cli as jcli
     from deepreadmapper_tpu_torch import cli as tcli
 
@@ -43,7 +44,7 @@ def _run_both(data_dir, tmp_path, build_extra=(), pipe_extra=()):
     for tag, cli in (("jax", jcli), ("torch", tcli)):
         idx, res = str(tmp_path / f"{tag}_idx"), str(tmp_path / f"{tag}_out")
         assert cli.main(["build-index", fna, idx, "150", *build_extra]) == 0
-        assert cli.main(["pipeline", idx, fq, fna, "128", "128", "5", res,
+        assert cli.main(["pipeline", idx, fq, fna, *pipe_args, res,
                          *pipe_extra]) == 0
         out[tag] = (np.load(os.path.join(res, "indices.npy")).astype(np.int64),
                     np.load(os.path.join(res, "distances.npy")),
@@ -85,11 +86,11 @@ def test_cli_refuses_unported_features(data_dir, tmp_path):
 
     fna = str(data_dir / "ecoli_150.fna")
     for argv in (
-        ["build-index", fna, str(tmp_path / "a"), "150", "--index-type", "PQFLAT"],
+        ["build-index", fna, str(tmp_path / "a"), "150", "--index-type", "IVFINT8"],
         ["build-index", fna, str(tmp_path / "a"), "150", "--resume"],
         ["build-index", fna, str(tmp_path / "a"), "150", "--shards", "2"],
         ["pipeline", str(tmp_path / "a"), fna, fna, "--mapq"],
-        ["pipeline", str(tmp_path / "a"), fna, fna, "--rerank", "sw"],
+        ["pipeline", str(tmp_path / "a"), fna, fna, "--long-reads"],
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.main(argv)
@@ -106,6 +107,10 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
         "assert cli.main(['build-index', fna, d + '/idx', '150']) == 0\n"
         "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '128', '5',"
         " d + '/out']) == 0\n"
+        "assert cli.main(['build-index', fna, d + '/pq', '150', '--index-type',"
+        " 'PQFLAT', '--opq']) == 0\n"
+        "assert cli.main(['pipeline', d + '/pq', fq, fna, '128', '10', '128',"
+        " d + '/pq_out', '--rerank', 'sw']) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('NO-JAX-OK')\n"
     )
@@ -115,3 +120,70 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO-JAX-OK" in proc.stdout
     assert os.path.exists(tmp_path / "out" / "indices.npy")
+    assert os.path.exists(tmp_path / "pq_out" / "results.sam")
+
+
+def _sam_ids(res, n_reads, k):
+    """Window ids (2*pos | strand, -1 unmapped) of each read's SAM records
+    in order, [n_reads, k] padded with -1, and the record count per read."""
+    groups, prev = [], None
+    with open(os.path.join(res, "results.sam")) as f:
+        for ln in f:
+            if ln.startswith("@"):
+                continue
+            rec = ln.split("\t")
+            if rec[0] != prev:
+                groups.append([])
+                prev = rec[0]
+            flag = int(rec[1])
+            groups[-1].append(-1 if flag & 4 else 2 * (int(rec[3]) - 1) + bool(flag & 16))
+    assert len(groups) == n_reads
+    ids = np.full((n_reads, k), -1, np.int64)
+    for i, g in enumerate(groups):
+        ids[i, : len(g)] = g
+    return ids, np.array([len(g) for g in groups])
+
+
+@pytest.mark.parametrize("build_extra,pipe_args", [
+    (("1", "--index-type", "PQFLAT"), ("128", "10", "128")),
+    (("4", "--index-type", "PQFLAT"), ("128", "10", "5")),
+])
+def test_pqflat_sw_rerank_matches_jax_cli(data_dir, tmp_path, build_extra, pipe_args):
+    """build-index PQFLAT -> pipeline --rerank sw through both CLIs, dense
+    and sparse: truth hits within one, the same SAM records per read, and
+    the same primary wherever the JAX package's top SW score is not tied.
+
+    Reads whose candidates include invalid (clipped) slots are the
+    exception: the JAX package sorts those slots first (an int32 overflow,
+    ROADMAP Queue C), writes them as an unmapped primary and drops them as
+    secondaries, so it has fewer records there; the port ranks them last."""
+    from deepreadmapper_tpu.io import fasta as fasta_io
+    from deepreadmapper_tpu.ops import sw as jsw
+    from deepreadmapper_tpu.tokenizer import strings_to_bytes
+
+    out, names = _run_both(data_dir, tmp_path, build_extra, ("--rerank", "sw"),
+                           pipe_args)
+    k = int(pipe_args[1])
+    jids, jcount = _sam_ids(out["jax"][2], 150, k)
+    tids, tcount = _sam_ids(out["torch"][2], 150, k)
+    assert (tcount == k).all() and (tids >= 0).all()
+    affected = jcount != k
+    assert affected.sum() <= (0 if build_extra[0] == "1" else 5), affected.sum()
+    pos = np.array([int(nm.split("_")[1]) - 1 for nm in names])
+
+    def hits(ids):
+        return int(np.sum(np.any((ids >= 0) & (np.abs((ids >> 1) - pos[:, None]) <= 2),
+                                 axis=1)))
+
+    hj, ht = hits(jids), hits(tids)
+    assert ht >= 135 and abs(ht - hj) <= 1, (ht, hj)
+    # ties at the top: the JAX package's first two records scored again
+    genome = fasta_io.parse_fasta_records(str(data_dir / "ecoli_150.fna"))[0]
+    seqs, _ = fastq.parse_fastq(str(data_dir / "test_data.fastq"))
+    top2 = np.maximum(jids[:, :2], 0).ravel()
+    a_mat, a_lens = fasta_io.fetch_windows_by_id(genome, top2, 150, max_len=150)
+    b_mat, b_lens = strings_to_bytes(["<" + s + ">" for s in seqs for _ in range(2)])
+    sc = jsw.sw_scores(np.ascontiguousarray(a_mat), a_lens, b_mat, b_lens).reshape(150, 2)
+    clear = ~affected & (sc[:, 0] != sc[:, 1])
+    assert clear.sum() >= 100
+    np.testing.assert_array_equal(tids[clear, 0], jids[clear, 0])

@@ -1,0 +1,189 @@
+"""Port parity: the Smith-Waterman scores and the SW rerank against the JAX
+package (lax.scan wavefront, the Pallas kernel in interpret mode, and the
+scalar DP).  SW scores are integers, so every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from deepreadmapper_tpu.io import fasta as fasta_io
+from deepreadmapper_tpu.io import fastq
+from deepreadmapper_tpu.ops import sw as jsw
+from deepreadmapper_tpu.ops.sw_pallas import sw_scores_pallas
+from deepreadmapper_tpu.pipeline import postprocess as jpp
+from deepreadmapper_tpu.tokenizer import strings_to_bytes
+from deepreadmapper_tpu_torch import kernels
+from deepreadmapper_tpu_torch.ops import sw as tsw
+from deepreadmapper_tpu_torch.pipeline import postprocess as tpp
+
+_INT32_MIN = np.iinfo(np.int32).min
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads per test process: the suite runs in parallel
+    processes, and the plain versions' many small ops slow down badly when
+    every process starts a thread per core."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _port(a_mat, a_lens, b_mat, b_lens):
+    before = kernels.SW_SCORE.launches
+    out = tsw.sw_scores(torch.from_numpy(a_mat), torch.from_numpy(np.asarray(a_lens)),
+                        torch.from_numpy(b_mat), torch.from_numpy(np.asarray(b_lens)))
+    assert kernels.SW_SCORE.launches == before  # CPU tensors: plain version
+    assert out.dtype == torch.int32
+    return out.numpy()
+
+
+def _fixture_pairs(data_dir, n_reads):
+    """(windows, '<'-wrapped reads): each read against its true window, a
+    shifted window and a random one, on both strands' ids."""
+    genome = fasta_io.parse_fasta_records(str(data_dir / "ecoli_150.fna"))[0]
+    seqs, names = fastq.parse_fastq(str(data_dir / "test_data.fastq"))
+    rng = np.random.default_rng(0)
+    bound = 2 * (genome.size - 150 + 1)
+    ids, reads = [], []
+    for s, nm in zip(seqs[:n_reads], names[:n_reads]):
+        pos = min(int(nm.split("_")[1]) - 1, genome.size - 150)
+        for wid in (2 * pos, 2 * pos + 1, 2 * max(pos - 7, 0), int(rng.integers(0, bound))):
+            ids.append(wid)
+            reads.append("<" + s + ">")
+    a_mat, a_lens = fasta_io.fetch_windows_by_id(genome, np.array(ids), 150,
+                                                 max_len=150, wrap=False)
+    b_mat, b_lens = strings_to_bytes(reads)
+    return np.ascontiguousarray(a_mat), a_lens, b_mat, b_lens
+
+
+def test_fixture_pairs_match_jax(data_dir):
+    """Read/window pairs of the fixture: P = 300, not a multiple of 128."""
+    a_mat, a_lens, b_mat, b_lens = _fixture_pairs(data_dir, 75)
+    got = _port(a_mat, a_lens, b_mat, b_lens)
+    np.testing.assert_array_equal(got, jsw.sw_scores(a_mat, a_lens, b_mat, b_lens))
+    np.testing.assert_array_equal(
+        got, sw_scores_pallas(a_mat, a_lens, b_mat, b_lens, interpret=True))
+    assert got.max() >= 140  # true windows align nearly end to end
+    for p in (0, 1, 3):
+        a = a_mat[p, : a_lens[p]].tobytes().decode()
+        b = b_mat[p, : b_lens[p]].tobytes().decode()
+        assert got[p] == jsw.sw_score_reference(a, b)
+
+
+def test_edge_cases_match_scalar_dp():
+    """Zero lengths, lengths differing within a batch, '<'/'>' wrap bytes,
+    N bytes, lengths beyond the matrix width and below zero."""
+    rng = np.random.default_rng(3)
+    alphabet = np.array(list("ACGTN"))
+    la = [0, 5, 20, 150, 1, 73, 150, 33, 0, 150, 40]
+    lb = [7, 0, 3, 152, 99, 73, 152, 2, 0, 12, 152]
+    a = ["".join(rng.choice(alphabet, size=n)) for n in la]
+    b = ["<" + "".join(rng.choice(alphabet, size=max(n - 2, 0))) + ">" if n >= 2
+         else "".join(rng.choice(alphabet, size=n)) for n in lb]
+    b[9] = "<" + a[9][40:50] + ">"  # a local match inside a long row
+    a_mat, a_lens = strings_to_bytes(a, width=150)
+    b_mat, b_lens = strings_to_bytes(b, width=152)
+    want = np.array([jsw.sw_score_reference(x, y) for x, y in zip(a, b)])
+    got = _port(a_mat, a_lens, b_mat, b_lens)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jsw.sw_scores(a_mat, a_lens, b_mat, b_lens))
+    assert got[9] == 10
+    # lengths are clipped to [0, width], as the sentinel packing reads them
+    clipped = _port(a_mat, a_lens + 1000, b_mat, b_lens - 1000)
+    np.testing.assert_array_equal(clipped, np.zeros(len(a), np.int32))
+
+
+def test_empty_batch():
+    a = np.zeros((0, 150), np.uint8)
+    b = np.zeros((0, 152), np.uint8)
+    got = _port(a, np.zeros(0, np.int64), b, np.zeros(0, np.int64))
+    assert got.shape == (0,)
+    np.testing.assert_array_equal(got, jsw.sw_scores(a, np.zeros(0), b, np.zeros(0)))
+
+
+def test_chunking_is_invisible():
+    rng = np.random.default_rng(4)
+    a = rng.choice(np.frombuffer(b"ACGT", np.uint8), (37, 30))
+    b = rng.choice(np.frombuffer(b"ACGT", np.uint8), (37, 33))
+    la, lb = rng.integers(0, 31, 37), rng.integers(0, 34, 37)
+    args = [torch.from_numpy(x) for x in (a, la, b, lb)]
+    whole = tsw.sw_scores_reference(*args)
+    np.testing.assert_array_equal(tsw.sw_scores_reference(*args, chunk=5), whole)
+    np.testing.assert_array_equal(whole.numpy(), jsw.sw_scores(a, la, b, lb))
+
+
+def test_sw_scores_rejects_bad_inputs():
+    a = torch.zeros((4, 10), dtype=torch.uint8)
+    n = torch.full((4,), 10)
+    with pytest.raises(TypeError):
+        tsw.sw_scores(a.int(), n, a, n)
+    with pytest.raises(ValueError):
+        tsw.sw_scores(a, n, a[:3], n)
+    with pytest.raises(ValueError):
+        tsw.sw_scores(a, n[:2], a, n)
+
+
+def _sw_rerank_case(data_dir, stride):
+    genome = fasta_io.parse_fasta_records(str(data_dir / "ecoli_150.fna"))[0]
+    seqs, names = fastq.parse_fastq(str(data_dir / "test_data.fastq"))
+    nq, k_clusters, ref_len = 40, 6, 150
+    bound = 2 * (genome.size - ref_len + 1)
+    rng = np.random.default_rng(stride)
+    true = np.array([2 * (int(nm.split("_")[1]) - 1) for nm in names[:nq]])
+    neighbors = rng.integers(0, bound // stride, (nq, k_clusters)).astype(np.int64)
+    neighbors[:, 2] = true // stride                        # near the truth,
+    neighbors[:, 5] = (true + 1) // stride                  # either strand
+    neighbors[:, 4] = neighbors[:, 3]                       # duplicate hits tie
+    neighbors[0, 1] = -1                                    # a missing hit
+    neighbors[1, 0] = bound // stride - 1                   # clipped at the end
+    q_mat, q_lens = strings_to_bytes(["<" + s + ">" for s in seqs[:nq]])
+
+    def fetch(ids):
+        return fasta_io.fetch_windows_by_id(genome, ids, ref_len, max_len=ref_len)
+
+    return neighbors, q_mat, q_lens, fetch, bound, k_clusters
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_post_process_sw_matches_jax(data_dir, stride):
+    neighbors, q_mat, q_lens, fetch, bound, kc = _sw_rerank_case(data_dir, stride)
+    n_cand = kc * (2 * stride - 1)
+    k = kc if stride == 1 else 12
+    args = (neighbors, q_mat, q_lens, fetch, stride)
+    # The JAX package negates INT32_MIN in int32 (it wraps), so its invalid
+    # slots sort FIRST and push valid candidates out of its top k; the port
+    # sorts them last.  The JAX package's full ranking (k = every slot)
+    # with its invalid slots moved to the end, stably, must give the port's
+    # top k exactly, ties included.
+    ji, js = jpp.post_process_sw(*args, n_cand, kc, bound, query_chunk=16)
+    jinv = js == _INT32_MIN
+    assert jinv.any()
+    order = np.argsort(jinv, axis=1, kind="stable")[:, :k]
+    timings = {}
+    ti, ts = tpp.post_process_sw(*args, k, kc, bound, query_chunk=16, device="cpu",
+                                 timings=timings)
+    assert ti.dtype == np.int64 and ts.dtype == np.int32
+    assert set(timings) == {"fetch", "sw", "sort"}
+    np.testing.assert_array_equal(ti, np.take_along_axis(ji, order, axis=1))
+    np.testing.assert_array_equal(ts, np.take_along_axis(js, order, axis=1))
+    # where no slot is invalid, the two packages agree as they stand
+    clean = ~jinv.any(axis=1)
+    assert clean.sum() >= 1
+    ji_k, _ = jpp.post_process_sw(*args, k, kc, bound, query_chunk=16)
+    np.testing.assert_array_equal(ti[clean], ji_k[clean])
+    # the read's own window wins for nearly every read
+    _, names = fastq.parse_fastq(str(data_dir / "test_data.fastq"))
+    pos = np.array([int(nm.split("_")[1]) - 1 for nm in names[: ti.shape[0]]])
+    assert np.mean(np.abs((ti[:, 0] >> 1) - pos) <= 2) > 0.9
+
+
+def test_post_process_sw_checks_k(data_dir):
+    neighbors, q_mat, q_lens, fetch, bound, kc = _sw_rerank_case(data_dir, 1)
+    with pytest.raises(ValueError):
+        tpp.post_process_sw(neighbors, q_mat, q_lens, fetch, 1, kc + 1, kc, bound,
+                            device="cpu")
+    with pytest.raises(ValueError):
+        tpp.post_process_sw(neighbors, q_mat, q_lens, fetch, 4, 100, kc, bound,
+                            device="cpu")
