@@ -22,8 +22,19 @@ Phases (any failure raises and the exit code is not 0):
               its plain-driven self (bit for bit); then the same simulation
               shrunk to the JAX package's CPU size (200 kbp, 1024 reads),
               SW top-1 over the exact scan's candidates
-The last lines are one JSON object of kernel results, the nvidia-smi line,
-and {"ok": true, "device": {...}}.
+  7. genome_ivf build-index --index-type IVFINT8 (auto nlist) -> pipeline at
+              nprobe 32 on a seeded 20 Mbp genome (39,999,702 windows) and
+              8192 reads (host plan + fold); in process 2048 reads (host
+              plan + packed) and 256 reads (fused device plan); top-1 against
+              the exhaustive int8 scan of the index's own codes
+  8. genome_ivfpq the same three routes on phase 6's genome and reads with
+              --index-type IVFPQ; codes and codebook against phase 6's PQFLAT
+              build, top-1 against its search
+Phase 3 also holds the four IVF chunk scans against their plain versions on
+a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan.
+The last lines are one JSON object of kernel results (time, plain time,
+bound, library time, launches on the main path), the nvidia-smi line, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -53,6 +64,17 @@ CPU_SIZE_BP, CPU_SIZE_READS = 200_000, 1024  # the simulation shrunk to CPU size
 # SW rerank at that size.  Recorded, not measured here (this script imports
 # no JAX): `python scripts/sw_top1_cpu_size.py --package jax` prints it.
 JAX_SW_TOP1_READS = 1021
+IVF_GENOME_BP = 20_000_000          # 39,999,702 windows: the JAX package's IVF record shape
+IVF_NPROBE = 32
+IVF_KERNEL_ROWS = 1 << 21           # the IVF kernels' layout in phase 3 holds at least this
+# H100 SXM peaks (on-chip-measurement guide) for the bound of each kernel
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12                # int8 tensor cores, dense
+FP32_OPS_S = 67e12                  # fp32 outside the tensor cores (an FMA is 2)
+# 32-bit integer add / compare / min / max: 64 results per SM per clock at
+# compute capability 9.0 (CUDA C++ Programming Guide), 132 SMs, 1.98 GHz
+INT32_OPS_S = 132 * 64 * 1.98e9
+SW_OPS_PER_CELL = 7                 # match test, diag+s, max 0, max(up,left), -1, max, best
 
 
 def log(msg: str) -> None:
@@ -72,6 +94,14 @@ def cuda_time(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, ops_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_device():
@@ -98,11 +128,12 @@ def phase_build():
     from deepreadmapper_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels.ALL)) as pool:  # one nvcc per source, all at once
-        libs = list(pool.map(lambda k: k.build(), kernels.ALL))
+    per_source = list({k.source_name: k for k in kernels.ALL}.values())
+    with ThreadPoolExecutor(len(per_source)) as pool:  # one nvcc per source, all at once
+        libs = list(pool.map(lambda k: k.build(), per_source))
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
-    for k, so in zip(kernels.ALL, libs):
-        log(f"[build] {k.name}: {os.path.relpath(so, ROOT)} in "
+    for k, so in zip(per_source, libs):
+        log(f"[build] {k.source_name}: {os.path.relpath(so, ROOT)} in "
             f"{k.build_seconds if k.build_seconds is not None else 0.0:.1f} s")
         for line in k.build_log.splitlines():
             if "ptxas info" in line and ("Used" in line or "spill" in line
@@ -163,13 +194,29 @@ def check_gru(results: dict):
     def kernel_impl(x, w, b, r, rb, rev, last):
         return (gru.gru_proj_last if last else gru.gru_proj_seq)(x, w, b, r, rb, rev)
 
+    # the library yardstick: cuDNN's bidirectional GRU (fp32, TF32 off) on
+    # the same two layer inputs; the port never calls it
+    lib1 = torch.nn.GRU(64, 64, bidirectional=True).cuda()
+    lib2 = torch.nn.GRU(128, 64, bidirectional=True).cuda()
+
+    def library():
+        with torch.no_grad():
+            lib1(x1)
+            lib2(x2)
+
     t_plain_a = cuda_time(batch(gru.gru_reference), 3)
     t_kernel = cuda_time(batch(kernel_impl), 10)
+    t_lib = cuda_time(library, 10)
     t_plain_b = cuda_time(batch(gru.gru_reference), 3)
     t_plain = (t_plain_a + t_plain_b) / 2
+    # 2 directions x T steps x B rows x (input + recurrent products) x 3 gates
+    ops = sum(2 * GRU_T * GRU_B * 2 * (din + 64) * 192 for din in (64, 128))
+    nbytes = 4 * GRU_T * GRU_B * (64 + 128) + 4 * GRU_T * GRU_B * 64 * 2 + 4 * GRU_B * 64 * 2
     log(f"[kernels] gru encoder batch (4 calls, B={GRU_B}, fp32): kernel "
-        f"{t_kernel:.3f} ms | plain {t_plain_a:.3f} / {t_plain_b:.3f} ms")
-    results["gru_fwd"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain}
+        f"{t_kernel:.3f} ms | plain {t_plain_a:.3f} / {t_plain_b:.3f} ms | cuDNN "
+        f"torch.nn.GRU {t_lib:.3f} ms | {ops / 1e9:.1f} GFLOP")
+    results["gru_fwd"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain,
+                          **bound(nbytes, ops, FP32_OPS_S), "library_ms": t_lib}
 
 
 def check_int8(results: dict):
@@ -219,8 +266,10 @@ def check_int8(results: dict):
     log(f"[kernels] int8_winmin {SCAN_ROWS} rows x {SCAN_Q} queries: kernel "
         f"{t_kernel:.3f} ms ({tops:.1f} int8 TOP/s) | plain {t_plain_a:.3f} / "
         f"{t_plain_b:.3f} ms")
-    results["int8_winmin"] = {"max_abs_err": worst, "ms": t_kernel,
-                              "plain_ms": t_plain}
+    nbytes = SCAN_ROWS * 128 + SCAN_Q * 128 + (SCAN_ROWS // sk.W) * SCAN_Q * 8
+    results["int8_winmin"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain,
+                              **bound(nbytes, 2.0 * SCAN_ROWS * SCAN_Q * 128, INT8_OPS_S),
+                              "library_ms": None}
 
 
 def _sw_pairs(rng, p: int):
@@ -283,8 +332,11 @@ def check_sw(results: dict):
     log(f"[kernels] sw_score {SW_PAIRS} pairs of {READ_LEN}x{READ_LEN + 2}: kernel "
         f"{t_kernel:.3f} ms ({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | plain "
         f"{t_plain_a:.3f} / {t_plain_b:.3f} ms")
+    nbytes = float(la.sum() + lb.sum()) + 4.0 * 3 * SW_PAIRS
     results["sw_score"] = {"max_abs_err": float(worst), "ms": t_kernel,
-                           "plain_ms": (t_plain_a + t_plain_b) / 2}
+                           "plain_ms": (t_plain_a + t_plain_b) / 2,
+                           **bound(nbytes, SW_OPS_PER_CELL * cells, INT32_OPS_S),
+                           "library_ms": None}
 
 
 def check_pq(results: dict):
@@ -324,8 +376,137 @@ def check_pq(results: dict):
             f"{t_kernel:.3f} ms ({tops:.1f} int8 TOP/s) | plain {t_plain_a:.3f} / "
             f"{t_plain_b:.3f} ms")
         times[m] = (t_kernel, (t_plain_a + t_plain_b) / 2)
+    nbytes = SCAN_ROWS * 8 + 8 * 256 * 16 + SCAN_Q * 128 + (SCAN_ROWS // sk.W) * SCAN_Q * 8
     results["pq_winmin"] = {"max_abs_err": worst, "ms": times[8][0],
-                            "plain_ms": times[8][1]}
+                            "plain_ms": times[8][1],
+                            **bound(nbytes, 2.0 * SCAN_ROWS * SCAN_Q * 128, INT8_OPS_S),
+                            "library_ms": None}
+
+
+def _ivf_engines(rng, dev):
+    """An IVFINT8 and an IVFPQ (m 8, nbits 8) engine over one random chunked
+    layout of >= IVF_KERNEL_ROWS rows: slabs of 1-3 chunks, every second
+    slab tie-heavy (int8 values in [-2, 2]; PQ codes in {0, 1}), and a
+    quarter more clusters than slabs, so queries probe some slabs twice."""
+    from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
+    from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+    from deepreadmapper_tpu_torch.ops import pq as pq_ops
+    import torch
+
+    cap = 3 * ik.CHK
+    fills = rng.integers(1, cap + 1, IVF_KERNEL_ROWS // cap * 4)
+    fills = fills[: int(np.searchsorted(np.cumsum(fills), IVF_KERNEL_ROWS)) + 1]
+    s, n = fills.size, int(fills.sum())
+    live = (np.arange(cap)[None, :] < fills[:, None]).ravel()
+    slots = np.nonzero(live)[0]
+    tie = np.repeat(np.arange(s) % 2 == 1, fills)
+    row_ids = np.full((s + 1) * cap, -1, np.int64)
+    row_ids[slots] = rng.permutation(n)
+    codes = np.zeros(((s + 1) * cap, 128), np.int8)
+    codes[slots] = np.where(tie[:, None], rng.integers(-2, 3, (n, 128)),
+                            rng.integers(-127, 128, (n, 128)))
+    pq_codes = np.zeros(((s + 1) * cap, 8), np.uint8)
+    pq_codes[slots] = np.where(tie[:, None], rng.integers(0, 2, (n, 8)),
+                               rng.integers(0, 256, (n, 8)))
+    nlist = s + s // 4
+    slab_of = np.concatenate([np.arange(s), rng.integers(0, s, nlist - s)]).astype(np.int32)
+    cent = rng.standard_normal((nlist, 128)).astype(np.float32)
+    book = pq_ops.PQCodebook(torch.from_numpy(
+        rng.standard_normal((8, 256, 16)).astype(np.float32) * 0.3).to(dev))
+    return (IVFInt8Index(codes, cent, row_ids, slab_of, 1 / 127, n, cap, s, dev),
+            IVFPQIndex(pq_codes, cent, row_ids, slab_of, book, n, cap, s, device=dev))
+
+
+def _hold_equal(tag: str, got, want) -> None:
+    """got == want bit for bit (fp32 compared as int32 bit patterns)."""
+    import torch
+
+    gi, wi = got.view(torch.int32), want.view(torch.int32)
+    if gi.shape != wi.shape or not bool((gi == wi).all()):
+        bad = int((gi != wi).sum()) if gi.shape == wi.shape else -1
+        raise AssertionError(f"{tag}: {bad} of {gi.numel()} values differ from the plain version")
+
+
+def check_ivf(results: dict):
+    """The four IVF chunk scans against their plain versions, bit for bit,
+    under one plan of 8192 queries x nprobe 32 over >= 2^21 rows."""
+    import torch
+
+    from deepreadmapper_tpu_torch.index.ivf_int8 import drop_pad_steps
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    eng8, engpq = _ivf_engines(rng, dev)
+    nq = SCAN_Q
+    probe = np.argsort(rng.random((nq, eng8.nlist)), axis=1)[:, :IVF_NPROBE]
+    plan = [torch.from_numpy(a).to(dev) for a in eng8._build_plan_chunked(probe, ik.QTK)]
+    padded = plan[0].shape[0]
+    sc, sv, qidx, slot_of = drop_pad_steps(plan)  # as the engine launches it
+    q8 = torch.from_numpy(rng.integers(-127, 128, (nq + 1, 128), dtype=np.int8)).to(dev)
+    q8[nq] = 0
+    qsteps = q8[qidx.long()]
+    ratio2 = 2.0 * float(np.float32(1.3))
+    vis = torch.unique(slot_of.reshape(-1).long() // ik.QTK)
+    _first, count = ik.visit_steps(sv, qidx.shape[0])
+    steps, visits = int(count[vis].sum()), int(vis.numel())
+    c8, rn8 = eng8._device()[:2]
+    (packed, cent2d), rnpq = engpq._device()[:2]
+    log(f"[kernels] IVF layout: {eng8.ntotal} rows in {eng8.n_slabs} slabs of "
+        f"{int(eng8._chunk_meta()[0][:-1].min())}-{int(eng8._chunk_meta()[0][:-1].max())} "
+        f"chunks; plan of {nq} queries x nprobe {IVF_NPROBE}: {visits} visits, {steps} "
+        f"chunk steps (the plan's {padded} less its padding)")
+    rows_out = ik.fold_rows(nq)
+
+    def cases(r2):
+        """name -> (kernel call, plain call, compared part, bytes per step, output bytes)"""
+        return {
+            "ivf_chunk_int8": (
+                lambda: ik.ivf_chunk_scan_int8(sc, sv, qsteps, c8, rn8, r2),
+                lambda: ik.ivf_chunk_scan_int8_reference(sc, sv, qsteps, c8, rn8, r2),
+                lambda x: x[vis], ik.CHK * (128 + 4), visits * ik.QTK * 4 * ik.KP * 4),
+            "ivf_chunk_int8_fold": (
+                lambda: ik.ivf_chunk_scan_int8_fold(sc, sv, qidx, qsteps, c8, rn8, r2, nq),
+                lambda: ik.ivf_chunk_scan_int8_fold_reference(sc, sv, qidx, qsteps, c8, rn8,
+                                                              r2, nq),
+                lambda x: x[:nq], ik.CHK * (128 + 4), rows_out * 2 * ik.FS * ik.KP * 4),
+            "ivf_chunk_pq": (
+                lambda: ik.ivf_chunk_scan_pq(sc, sv, qsteps, packed, rnpq, cent2d, r2, 8),
+                lambda: ik.ivf_chunk_scan_pq_reference(sc, sv, qsteps, packed, rnpq, cent2d,
+                                                       r2, 8),
+                lambda x: x[vis], ik.CHK * (8 + 4), visits * ik.QTK * 4 * ik.KP * 4),
+            "ivf_chunk_pq_fold": (
+                lambda: ik.ivf_chunk_scan_pq_fold(sc, sv, qidx, qsteps, packed, rnpq, cent2d,
+                                                  r2, 8, nq),
+                lambda: ik.ivf_chunk_scan_pq_fold_reference(sc, sv, qidx, qsteps, packed,
+                                                            rnpq, cent2d, r2, 8, nq),
+                lambda x: x[:nq], ik.CHK * (8 + 4), rows_out * 2 * ik.FS * ik.KP * 4),
+        }
+
+    for ratio in (1.0, 1.3):
+        for name, (kernel, plain, part, _sb, _ob) in cases(2.0 * float(np.float32(ratio))).items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            _hold_equal(f"{name} ratio {ratio}", part(got), part(want))
+            del got, want
+    log("[kernels] IVF chunk scans: packed states of every referenced visit and fold "
+        "rows [0, nq) bit-exact vs plain at ratio 1 and 1.3")
+    for name, (kernel, plain, _part, step_bytes, out_bytes) in cases(
+            2.0 * float(np.float32(1.3))).items():
+        t_plain_a = cuda_time(plain, 1)
+        t_kernel = cuda_time(kernel, 3)
+        t_plain_b = cuda_time(plain, 1)
+        nbytes = steps * step_bytes + visits * ik.QTK * 128 + out_bytes
+        ops = 2.0 * steps * ik.QTK * ik.CHK * 128
+        b = bound(nbytes, ops, INT8_OPS_S)
+        log(f"[kernels] {name}: kernel {t_kernel:.3f} ms | plain {t_plain_a:.3f} / "
+            f"{t_plain_b:.3f} ms | bound {b['bound_ms']:.3f} ms ({b['bound_by']}; "
+            f"{ops / 1e12:.3f} int8 TOP, {nbytes / 1e9:.3f} GB)")
+        results[name] = {"max_abs_err": 0.0, "ms": t_kernel,
+                         "plain_ms": (t_plain_a + t_plain_b) / 2, **b, "library_ms": None}
+    del eng8, engpq, c8, rn8, packed, rnpq
+    torch.cuda.empty_cache()
 
 
 def truth_hits(indices: np.ndarray, names: list[str], slack: int) -> int:
@@ -370,6 +551,18 @@ def phase_fixture():
         "(need >= 135)")
     if top1 < 135:
         raise AssertionError(f"fixture SW top-1 {top1} < 135")
+    # the IVF engines (auto nlist 32; 150 reads x nprobe 16: the fused route)
+    for index_type, extra in (("IVFINT8", []), ("IVFPQ", ["--opq"])):
+        idx, out = os.path.join(work, index_type), os.path.join(work, index_type + "_out")
+        if cli.main(["build-index", fna, idx, "150", "--index-type", index_type, *extra]) != 0:
+            raise AssertionError(f"fixture {index_type} build-index failed")
+        if cli.main(["pipeline", idx, fq, fna, "16", "128", "128", out]) != 0:
+            raise AssertionError(f"fixture {index_type} pipeline failed")
+        hits = truth_hits(np.load(os.path.join(out, "indices.npy")), names, 2)
+        log(f"[fixture] {index_type}{' + OPQ' if extra else ''}, nprobe 16: truth hits "
+            f"{hits}/{len(names)} (need >= 135)")
+        if hits < 135:
+            raise AssertionError(f"fixture {index_type} truth hits {hits} < 135")
 
 
 def simulate(work: str, genome_bp: int = GENOME_BP, n_reads: int = N_READS):
@@ -602,6 +795,7 @@ def phase_genome_pq(results: dict):
     if top1 < SW_TOP1_FLOOR or top1 < pq_top1 or top1 < recall - 0.001:
         raise AssertionError(f"PQFLAT + SW top-1 {top1} (search top-1 {pq_top1}, "
                              f"recall@10 {recall})")
+    pqflat = {"sim": (ref, fq, starts, strands, mat), "idx": idx, "top1": pq_top1}
 
     # the SW rerank split: host fetch/sort and upload+score+download from
     # the pipeline's own line, the kernel alone by CUDA events on as many
@@ -648,6 +842,7 @@ def phase_genome_pq(results: dict):
     log(f"[genome_pq] fused PQ scan over {codes.shape[0]} rows x 1024 reads: "
         "kernel-driven == plain-driven")
     check_cpu_size_sw()
+    return pqflat
 
 
 def check_cpu_size_sw():
@@ -684,6 +879,230 @@ def check_cpu_size_sw():
         raise AssertionError(f"CPU-size SW top-1 {hits} < {JAX_SW_TOP1_READS} reads")
 
 
+def _top1(ids: np.ndarray, starts: np.ndarray, strands: np.ndarray) -> float:
+    """Share of reads whose first candidate is within 5 bp of the truth, on
+    the right strand."""
+    top = ids[:, 0].astype(np.int64)
+    return float(np.mean((np.abs((top >> 1) - starts) <= 5) & ((top & 1) == strands)))
+
+
+def _split(tm: dict) -> str:
+    return " | ".join(f"{k} {tm[k] * 1e3:.1f} ms" for k in
+                      ("probe", "plan", "kernel", "merge", "download") if k in tm)
+
+
+def _plan_bound(tm: dict, row_bytes: int, nq: int, fold: bool) -> str:
+    """The scan's bound on this batch's plan: every chunk step reads its
+    CHK rows (row_bytes each, norm included), every visit its QTK query
+    rows; the output is the fold accumulator or the packed visit states."""
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+
+    steps, visits = tm["plan_steps"], tm["plan_visits"]
+    out = (ik.fold_rows(nq) * 2 * ik.FS if fold else visits * ik.QTK * 4) * ik.KP * 4
+    b = bound(steps * ik.CHK * row_bytes + visits * ik.QTK * 128 + out,
+              2.0 * steps * ik.QTK * ik.CHK * 128, INT8_OPS_S)
+    return f"scan bound {b['bound_ms']:.3f} ms ({b['bound_by']})"
+
+
+def _ivf_routes(tag: str, engine, q: np.ndarray, packed_kernel: str, fold_kernel: str,
+                results: dict, row_bytes: int) -> None:
+    """On a loaded IVF engine: the device layout; the 8192-read batch again
+    (host plan + fold), timed with its split; the same batch through the
+    packed merge (same top-1 distance for every read); a quarter of the
+    batch, 2048 reads (host plan + packed), and 256 reads (fused device
+    plan), each with the counts set to 0 just before and read just after;
+    the fused reads against the host plan, bit for bit."""
+    import torch
+
+    from deepreadmapper_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    engine._device()
+    torch.cuda.synchronize()
+    log(f"[{tag}] device layout (chunked rows + norms, upload): "
+        f"{time.perf_counter() - t0:.2f} s")
+    engine.search(q, 128, ef=IVF_NPROBE)  # warm
+    torch.cuda.synchronize()
+    tm, stats = {}, {}
+    t0 = time.perf_counter()
+    _, fd = engine.search(q, 128, ef=IVF_NPROBE, stats=stats, timings=tm)
+    t_fold = time.perf_counter() - t0
+    log(f"[{tag}] steady search of {len(q)} reads (host plan + fold, split synchronised): "
+        f"{t_fold:.3f} s ({len(q) / t_fold:.0f} reads/s); {_split(tm)}; plan "
+        f"{tm['plan_visits']} visits, {tm['plan_steps']} chunk steps, "
+        f"{_plan_bound(tm, row_bytes, len(q), True)}; "
+        f"{stats['probed_rows_per_query']} rows probed per read (coverage {stats['coverage']})")
+    engine._FOLD_MIN_Q = 1 << 30  # the packed merge on the same batch
+    tm = {}
+    _, pd = engine.search(q, 128, ef=IVF_NPROBE, timings=tm)
+    del engine._FOLD_MIN_Q
+    same = float(np.mean(fd[:, 0] == pd[:, 0]))
+    log(f"[{tag}] the same {len(q)} reads through the packed merge: {_split(tm)}; same "
+        f"top-1 distance as the fold for {same:.4f} of reads (need 1)")
+    if same != 1.0:
+        raise AssertionError(f"{tag}: fold and packed top-1 distances differ")
+    launched = 0
+    n_fused = engine._FUSED_MAX_PAIRS // IVF_NPROBE  # 256: the largest fused batch
+    for n, route in ((len(q) // 4, "host plan + packed"), (n_fused, "fused device plan")):
+        kernels.reset_counts()
+        tm = {}
+        t0 = time.perf_counter()
+        ids, d = engine.search(q[:n], 128, ef=IVF_NPROBE, timings=tm)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.counts()
+        log(f"[{tag}] {n} reads ({route}): {dt * 1e3:.1f} ms ({n / dt:.0f} reads/s); "
+            f"{_split(tm)}; {tm['plan_visits']} visits, {tm['plan_steps']} chunk steps, "
+            f"{_plan_bound(tm, row_bytes, n, False)}; "
+            f"launches {packed_kernel} {counts[packed_kernel]}, {fold_kernel} "
+            f"{counts[fold_kernel]}")
+        if counts[packed_kernel] < 1 or counts[fold_kernel] != 0:
+            raise AssertionError(f"{tag}: {n} reads missed {packed_kernel}: {counts}")
+        launched += counts[packed_kernel]
+    engine._FUSED_MAX_PAIRS = 0
+    hi, hd = engine.search(q[:n_fused], 128, ef=IVF_NPROBE)
+    del engine._FUSED_MAX_PAIRS
+    if not (np.array_equal(hi, ids) and np.array_equal(hd, d)):
+        raise AssertionError(f"{tag}: fused route != host plan on {n_fused} reads")
+    log(f"[{tag}] {n_fused} reads: fused device plan == host plan, ids and distances bit "
+        "for bit")
+    results[packed_kernel]["launches"] = launched
+
+
+def _build_split(tag: str, config: dict, t_build: float, bt: dict) -> None:
+    n = config["n_vects"]
+    split = " | ".join(f"{k} {bt[k]:.2f} s" for k in
+                       ("embed", "kmeans", "assign", "split_pack", "save") if k in bt)
+    log(f"[{tag}] build: {n} windows in {t_build:.2f} s ({n / t_build:.0f} windows/s); "
+        f"{split}")
+
+
+def phase_genome_ivf(results: dict):
+    """build-index --index-type IVFINT8 -> pipeline at nprobe 32 on a 20 Mbp
+    genome: the IVF slice at the JAX package's recorded shape."""
+    import gc
+
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, kernels
+    from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex
+    from deepreadmapper_tpu_torch.index.registry import load_index
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.pipeline.build import build_index
+
+    work = os.path.join(WORK, "genome_ivf")
+    os.makedirs(work, exist_ok=True)
+    ref, fq, starts, strands, mat, _ = simulate(work, IVF_GENOME_BP, N_READS)
+    idx, out = os.path.join(work, "idx"), os.path.join(work, "out")
+    torch.cuda.reset_peak_memory_stats()
+    bt = {}
+    t0 = time.perf_counter()
+    config = build_index(ref, idx, READ_LEN, index_type="IVFINT8", timings=bt)
+    torch.cuda.synchronize()
+    _build_split("genome_ivf", config, time.perf_counter() - t0, bt)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["pipeline", idx, fq, ref, str(IVF_NPROBE), "128", "128", out, "--no-sam"])
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    launches = kernels.counts()
+    if rc != 0:
+        raise AssertionError("IVFINT8 pipeline failed")
+    log(f"[genome_ivf] pipeline (load, embed, search {N_READS} reads, write): {t_pipe:.2f} s; "
+        f"launches {launches}; max_memory_allocated in build + pipeline "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches["ivf_chunk_int8_fold"] < 1 or launches["gru_fwd"] < 1:
+        raise AssertionError(f"IVFINT8 main path missed a kernel: {launches}")
+    results["ivf_chunk_int8_fold"]["launches"] = launches["ivf_chunk_int8_fold"]
+    top1 = _top1(np.load(os.path.join(out, "indices.npy")), starts, strands)
+
+    engine, _ = load_index(idx)
+    q = Vectorizer().vectorize_wrapped_bytes(mat, np.full(N_READS, READ_LEN + 2))
+    log(f"[genome_ivf] {engine.ntotal} rows, nlist {engine.nlist}, {engine.n_slabs} slabs "
+        f"of cap {engine.cap}, {engine._chunk_meta()[2]} chunks of {2048} rows")
+    _ivf_routes("genome_ivf", engine, q, "ivf_chunk_int8", "ivf_chunk_int8_fold", results,
+                engine.codes_cm.shape[1] + 4)
+
+    # the exhaustive fused int8 scan over the index's own codes, same reads
+    live = engine.row_ids >= 0
+    codes = np.empty((engine.ntotal, engine.codes_cm.shape[1]), np.int8)
+    codes[engine.row_ids[live]] = engine.codes_cm[live]
+    scale, n = engine.scale, engine.ntotal
+    del engine, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat = Int8FlatIndex(codes, scale, n)
+    t0 = time.perf_counter()
+    ei, _ = flat.search(q, 128)
+    torch.cuda.synchronize()
+    exh = _top1(ei, starts, strands)
+    log(f"[genome_ivf] top-1 (position +-5 bp and strand) at nprobe {IVF_NPROBE}: {top1:.4f} "
+        f"(need >= the exhaustive int8 scan's {exh:.4f} - 0.02; that scan "
+        f"{time.perf_counter() - t0:.2f} s incl. upload)")
+    if top1 < exh - 0.02:
+        raise AssertionError(f"IVFINT8 top-1 {top1} < exhaustive {exh} - 0.02")
+    del flat, codes
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_genome_ivfpq(results: dict, pqflat: dict):
+    """build-index --index-type IVFPQ -> pipeline at nprobe 32 on phase 6's
+    5 Mbp genome and reads."""
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, kernels
+    from deepreadmapper_tpu_torch.index.registry import load_index
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.pipeline.build import build_index
+
+    ref, fq, starts, strands, mat = pqflat["sim"]
+    work = os.path.join(WORK, "genome_ivfpq")
+    idx, out = os.path.join(work, "idx"), os.path.join(work, "out")
+    torch.cuda.reset_peak_memory_stats()
+    bt = {}
+    t0 = time.perf_counter()
+    config = build_index(ref, idx, READ_LEN, index_type="IVFPQ", timings=bt)
+    torch.cuda.synchronize()
+    _build_split("genome_ivfpq", config, time.perf_counter() - t0, bt)
+    # the stream encode is PQFLAT's: the same codebook and codes
+    z = np.load(os.path.join(pqflat["idx"], "pq.npz"))
+    y = np.load(os.path.join(idx, "ivf_pq.npz"))
+    live = y["row_ids"] >= 0
+    codes = np.empty_like(z["codes"])
+    codes[y["row_ids"][live]] = y["codes_cm"][live]
+    if not (np.array_equal(codes, z["codes"])
+            and np.array_equal(y["pq_centroids"], z["centroids"])):
+        raise AssertionError("IVFPQ codes or codebook differ from the PQFLAT build's")
+    log("[genome_ivfpq] PQ codebook and codes equal the PQFLAT build's (phase 6)")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["pipeline", idx, fq, ref, str(IVF_NPROBE), "128", "128", out, "--no-sam"])
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    launches = kernels.counts()
+    if rc != 0:
+        raise AssertionError("IVFPQ pipeline failed")
+    log(f"[genome_ivfpq] pipeline (load, embed, search {N_READS} reads, write): "
+        f"{t_pipe:.2f} s; launches {launches}; max_memory_allocated in build + pipeline "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches["ivf_chunk_pq_fold"] < 1 or launches["gru_fwd"] < 1:
+        raise AssertionError(f"IVFPQ main path missed a kernel: {launches}")
+    results["ivf_chunk_pq_fold"]["launches"] = launches["ivf_chunk_pq_fold"]
+    top1 = _top1(np.load(os.path.join(out, "indices.npy")), starts, strands)
+    log(f"[genome_ivfpq] top-1 (position +-5 bp and strand) at nprobe {IVF_NPROBE}: "
+        f"{top1:.4f} (need >= the PQFLAT search's {pqflat['top1']:.4f} - 0.02)")
+    if top1 < pqflat["top1"] - 0.02:
+        raise AssertionError(f"IVFPQ top-1 {top1} < PQFLAT {pqflat['top1']} - 0.02")
+    engine, _ = load_index(idx)
+    q = Vectorizer().vectorize_wrapped_bytes(mat, np.full(N_READS, READ_LEN + 2))
+    log(f"[genome_ivfpq] {engine.ntotal} rows, nlist {engine.nlist}, {engine.n_slabs} slabs "
+        f"of cap {engine.cap}, {engine._chunk_meta()[2]} chunks")
+    _ivf_routes("genome_ivfpq", engine, q, "ivf_chunk_pq", "ivf_chunk_pq_fold", results,
+                4 * -(-engine.codes_cm.shape[1] // 4) + 4)
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = phase_device()
@@ -698,13 +1117,25 @@ def main() -> int:
     check_int8(results)
     check_sw(results)
     check_pq(results)
+    check_ivf(results)
+    log(f"[time] phases 1-3 in {time.perf_counter() - t0:.1f} s")
     phase_fixture()
     phase_genome(results)
-    phase_genome_pq(results)
+    log(f"[time] phases 1-5 in {time.perf_counter() - t0:.1f} s")
+    pqflat = phase_genome_pq(results)
+    log(f"[time] phases 1-6 in {time.perf_counter() - t0:.1f} s")
+    phase_genome_ivf(results)
+    log(f"[time] phases 1-7 in {time.perf_counter() - t0:.1f} s")
+    phase_genome_ivfpq(results, pqflat)
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    log(f"[done] all phases in {time.perf_counter() - t0:.1f} s; jax never imported")
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == "deepreadmapper_tpu" or m.startswith("deepreadmapper_tpu."))
+    if jax_pkg:
+        raise AssertionError(f"the port imported the JAX package: {jax_pkg}")
+    log(f"[done] all phases in {time.perf_counter() - t0:.1f} s; neither jax nor the JAX "
+        "package was imported")
 
     from deepreadmapper_tpu_torch import kernels
 
@@ -713,11 +1144,17 @@ def main() -> int:
         "int8_winmin": "deepreadmapper_tpu/ops/scan_kernel.py:112",
         "sw_score": "deepreadmapper_tpu/ops/sw_pallas.py:38",
         "pq_winmin": "deepreadmapper_tpu/ops/scan_kernel.py:143",
+        "ivf_chunk_int8": "deepreadmapper_tpu/ops/ivf_kernel.py:245",
+        "ivf_chunk_int8_fold": "deepreadmapper_tpu/ops/ivf_kernel.py:445",
+        "ivf_chunk_pq": "deepreadmapper_tpu/ops/ivf_kernel.py:562",
+        "ivf_chunk_pq_fold": "deepreadmapper_tpu/ops/ivf_kernel.py:669",
     }
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     rows = [
         {"name": k.name, "route": "cuda",
          "source": os.path.relpath(k.source, ROOT),
-         "replaces": replaces[k.name], **results[k.name]}
+         "replaces": replaces[k.name], **{key: results[k.name][key] for key in keys}}
         for k in kernels.ALL
     ]
     print(json.dumps({"kernels": rows}))

@@ -5,9 +5,11 @@ with the positional arguments of ``deepreadmapper_tpu/cli.py``.
                use_dynamic use_streaming]
   build-index  <ref> <index_prefix> <ref_len> [stride M_pq nbits M_hnsw EFC]
 
-Flags of the JAX CLI that the port does not have yet are accepted and raise
-NotImplementedError, so a command line written for either package gives a
-clear answer.
+Both run on the CUDA device; ``--device cpu`` runs them on the CPU, and
+without a card and without that flag they exit with status 2 before
+reading or writing anything.  Flags of the JAX CLI that the port does not
+have yet are accepted and raise NotImplementedError, so a command line
+written for either package gives a clear answer.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from deepreadmapper_tpu_torch import not_ported
+from deepreadmapper_tpu_torch import not_ported, resolve_device
 
 # Flags of the JAX CLI whose features are not ported yet (ROADMAP.md).
 _PIPELINE_UNPORTED = (
@@ -29,8 +31,14 @@ _PIPELINE_UNPORTED_VALUED = (
 )
 _BUILD_UNPORTED = ("--resume", "--distributed")
 _BUILD_UNPORTED_VALUED = (
-    "--weights", "--shards", "--nlist", "--level-mode", "--build-mode",
+    "--weights", "--shards", "--level-mode", "--build-mode",
 )
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the port runs (default: the CUDA device; "
+                        "without one the command fails unless --device cpu)")
 
 
 def _add_pipeline(sub):
@@ -51,6 +59,7 @@ def _add_pipeline(sub):
                         "(stride 1) index")
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="encoder weights npz for query embedding")
+    _add_device(p)
     for flag in _PIPELINE_UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
     for flag in _PIPELINE_UNPORTED_VALUED:
@@ -70,9 +79,14 @@ def _add_build(sub):
     p.add_argument("--index-type", default="INT8FLAT",
                    help="INT8FLAT (default: exhaustive int8 scan) | FLAT "
                         "(exact fp32) | PQFLAT (exhaustive PQ scan, 8 B/vector "
-                        "at M_pq 8); other engines are not ported yet")
+                        "at M_pq 8) | IVFINT8 (cluster-pruned int8 scan; EF "
+                        "acts as nprobe) | IVFPQ (cluster-pruned PQ scan); "
+                        "other engines are not ported yet")
     p.add_argument("--opq", action="store_true",
-                   help="learn an OPQ rotation before PQ (PQFLAT)")
+                   help="learn an OPQ rotation before PQ (PQFLAT/IVFPQ)")
+    p.add_argument("--nlist", type=int, default=0,
+                   help="IVF coarse clusters (0 = auto, ~sqrt(N))")
+    _add_device(p)
     for flag in _BUILD_UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
     for flag in _BUILD_UNPORTED_VALUED:
@@ -91,6 +105,11 @@ def main(argv=None) -> int:
     _add_pipeline(sub)
     _add_build(sub)
     args = ap.parse_args(argv)
+    try:
+        device = resolve_device(None if args.device == "cuda" else args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
 
     if args.cmd == "pipeline":
         _refuse_unported(args, _PIPELINE_UNPORTED + _PIPELINE_UNPORTED_VALUED)
@@ -103,7 +122,7 @@ def main(argv=None) -> int:
                 load_params,
             )
 
-            vectorizer = Vectorizer(load_params(args.weights))
+            vectorizer = Vectorizer(load_params(args.weights), device=device)
         res = run_pipeline(
             args.index_prefix,
             args.query_file,
@@ -118,6 +137,7 @@ def main(argv=None) -> int:
             dense_rerank=args.dense_rerank,
             write_sam=not args.no_sam,
             vectorizer=vectorizer,
+            device=device,
         )
         print(
             f"[MAIN] {res['num_queries']} queries | embed {res['t_embed']:.2f}s "
@@ -127,7 +147,7 @@ def main(argv=None) -> int:
 
     if args.cmd == "build-index":
         _refuse_unported(args, _BUILD_UNPORTED + _BUILD_UNPORTED_VALUED)
-        from deepreadmapper_tpu.config import BuildConfig
+        from deepreadmapper_tpu_torch.config import BuildConfig
         from deepreadmapper_tpu_torch.pipeline.build import build_index
 
         cfg = BuildConfig(
@@ -137,6 +157,7 @@ def main(argv=None) -> int:
             m_hnsw=args.M_hnsw,
             efc=args.EFC,
             opq=args.opq,
+            nlist=args.nlist,
         )
         config = build_index(
             args.ref_file,
@@ -145,6 +166,7 @@ def main(argv=None) -> int:
             stride=args.stride,
             index_type=args.index_type,
             build_cfg=cfg,
+            device=device,
         )
         print(f"[BUILD INDEX] saved {config['n_vects']} vectors to "
               f"{args.index_prefix}")

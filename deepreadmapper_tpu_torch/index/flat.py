@@ -11,7 +11,7 @@ import os
 import numpy as np
 import torch
 
-from deepreadmapper_tpu_torch import default_device
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.index.registry import register_index
 from deepreadmapper_tpu_torch.ops.topk import l2_topk
 
@@ -21,7 +21,7 @@ class FlatIndex:
     def __init__(self, embeddings: np.ndarray,
                  device: torch.device | str | None = None):
         self.embeddings = np.ascontiguousarray(embeddings, dtype=np.float32)
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         self._dev = None
 
     @classmethod

@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from deepreadmapper_tpu_torch import default_device
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.index.registry import register_index
 from deepreadmapper_tpu_torch.ops import scan_kernel as sk
 from deepreadmapper_tpu_torch.ops.topk import as_f32, merge_smallest_k, smallest_k
@@ -145,7 +145,7 @@ class Int8FlatIndex:
         self.codes = codes              # [N, D] int8 (host)
         self.scale = float(scale)
         self.ntotal = ntotal
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         self._dev = None
         self._rn = None
 

@@ -22,8 +22,8 @@ import os
 import numpy as np
 import torch
 
-from deepreadmapper_tpu.config import BuildConfig
-from deepreadmapper_tpu_torch import default_device
+from deepreadmapper_tpu_torch.config import BuildConfig
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.index.int8_flat import search_quantized
 from deepreadmapper_tpu_torch.index.registry import register_index
 from deepreadmapper_tpu_torch.ops import pq as pq_ops
@@ -47,7 +47,7 @@ class PQFlatIndex:
         # L2 distances are unchanged.
         self.rot = None if rot is None else np.asarray(rot, np.float32)
         self.cb8 = pq_ops.quantize_codebook(codebook)
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         self._dev = None
         self._rn = None
 
@@ -55,7 +55,7 @@ class PQFlatIndex:
     def build(cls, embeddings, cfg: BuildConfig | None = None, device=None):
         """Train PQ (or OPQ) on the evenly spaced half sample, encode all."""
         cfg = cfg or BuildConfig()
-        dev = torch.device(device) if device is not None else default_device()
+        dev = resolve_device(device)
         x = as_f32(embeddings, dev)
         train = pq_ops.sample_training_set(x, cfg.sample_rate)
         rot = None
@@ -135,7 +135,7 @@ class PQFlatIndex:
     @classmethod
     def load(cls, index_prefix: str, config: dict | None = None, device=None):
         z = np.load(os.path.join(index_prefix, "pq.npz"))
-        dev = torch.device(device) if device is not None else default_device()
+        dev = resolve_device(device)
         return cls(
             z["codes"],
             pq_ops.PQCodebook(torch.tensor(z["centroids"], device=dev)),

@@ -9,7 +9,7 @@ import os
 
 import torch
 
-from deepreadmapper_tpu.io.configstore import load_config
+from deepreadmapper_tpu_torch.io.configstore import load_config
 from deepreadmapper_tpu_torch import not_ported
 
 _REGISTRY: dict[str, type] = {}
@@ -27,7 +27,13 @@ def load_index(index_prefix: str, device: torch.device | str | None = None):
     """Load an index directory (config.txt + engine files); returns
     (engine, config)."""
     # the engines register themselves on import
-    from deepreadmapper_tpu_torch.index import flat, int8_flat, pq_flat  # noqa: F401
+    from deepreadmapper_tpu_torch.index import (  # noqa: F401
+        flat,
+        int8_flat,
+        ivf_int8,
+        ivf_pq,
+        pq_flat,
+    )
 
     config_path = os.path.join(index_prefix, "config.txt")
     if not os.path.exists(config_path):

@@ -1,15 +1,17 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C entry point.  At first
-use the source is compiled by nvcc for ``sm_90a`` into a shared library and
-loaded with ctypes.  The library's file name carries a hash of the sources
-and flags: dlopen caches by path, so a rebuilt library under an old name
-would hand back the stale handle (the same trap ``deepreadmapper_tpu.native``
+Each kernel is a plain C entry point of one ``csrc/<source>.cu`` (by default
+``csrc/<name>.cu``; the four IVF scans share ``csrc/ivf_chunk.cu``).  At
+first use the source is compiled by nvcc for ``sm_90a`` into a shared
+library and loaded with ctypes.  The library's file name carries a hash of
+the sources and flags: dlopen caches by path, so a rebuilt library under an
+old name would hand back the stale handle (the same trap ``native``
 records).  There is no fallback: a missing nvcc or a failed build raises.
 
 Each C entry takes every pointer and the CUDA stream as ``void*`` and returns
-``cudaGetLastError()``; :meth:`CudaKernel.launch` raises when it is not 0 and
-otherwise adds one to the kernel's launch count.  Nothing here runs at import.
+``cudaGetLastError()`` (``<source>_error_string`` names it);
+:meth:`CudaKernel.launch` raises when it is not 0 and otherwise adds one to
+the kernel's launch count.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -53,11 +55,12 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu`` source, its C entry point and launch count."""
+    """One C entry point of a ``csrc/<source>.cu`` and its launch count."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, source: str | None = None):
         self.name = name
-        self.source = os.path.join(CSRC, name + ".cu")
+        self.source_name = source or name
+        self.source = os.path.join(CSRC, self.source_name + ".cu")
         self.argtypes = argtypes
         self.launches = 0
         self.build_seconds: float | None = None
@@ -73,7 +76,7 @@ class CudaKernel:
         ]:
             with open(path, "rb") as f:
                 h.update(f.read())
-        return os.path.join(BUILD_DIR, f"{self.name}-{h.hexdigest()[:16]}.so")
+        return os.path.join(BUILD_DIR, f"{self.source_name}-{h.hexdigest()[:16]}.so")
 
     def build(self) -> str:
         """Compile the source unless a library for it already exists;
@@ -108,7 +111,7 @@ class CudaKernel:
                 fn = getattr(lib, self.name)
                 fn.argtypes = self.argtypes
                 fn.restype = _I
-                err = getattr(lib, self.name + "_error_string")
+                err = getattr(lib, self.source_name + "_error_string")
                 err.argtypes = [_I]
                 err.restype = ctypes.c_char_p
                 self._errstr = err
@@ -133,7 +136,25 @@ SW_SCORE = CudaKernel("sw_score", [_P] * 5 + [_I] * 3 + [_P])
 # pq_winmin(q8, codes, cent8, vals, args, qp, np, w, ntotal, ratio2, m, ksub, stream)
 PQ_WINMIN = CudaKernel("pq_winmin", [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P])
 
-ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, PQ_WINMIN)
+# ivf_chunk_int8(step_chunk, vfirst, vcount, qsteps, codes, rn, out, n_visits,
+#                ratio2, stream)
+IVF_CHUNK_INT8 = CudaKernel("ivf_chunk_int8", [_P] * 7 + [_I, _F, _P], "ivf_chunk")
+# ivf_chunk_int8_fold(step_chunk, vfirst, vcount, qsteps, codes, rn, order,
+#                     qstart, qcount, scratch, facc, n_visits, nq, rows, ratio2,
+#                     stream)
+IVF_CHUNK_INT8_FOLD = CudaKernel("ivf_chunk_int8_fold", [_P] * 11 + [_I] * 3 + [_F, _P],
+                                 "ivf_chunk")
+# ivf_chunk_pq(step_chunk, vfirst, vcount, qsteps, packed, rn, cent, out,
+#              n_visits, ratio2, m, ksub, stream)
+IVF_CHUNK_PQ = CudaKernel("ivf_chunk_pq", [_P] * 8 + [_I, _F, _I, _I, _P], "ivf_chunk")
+# ivf_chunk_pq_fold(step_chunk, vfirst, vcount, qsteps, packed, rn, cent, order,
+#                   qstart, qcount, scratch, facc, n_visits, nq, rows, ratio2,
+#                   m, ksub, stream)
+IVF_CHUNK_PQ_FOLD = CudaKernel("ivf_chunk_pq_fold",
+                               [_P] * 12 + [_I] * 3 + [_F, _I, _I, _P], "ivf_chunk")
+
+ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, PQ_WINMIN, IVF_CHUNK_INT8,
+       IVF_CHUNK_INT8_FOLD, IVF_CHUNK_PQ, IVF_CHUNK_PQ_FOLD)
 
 
 def reset_counts() -> None:

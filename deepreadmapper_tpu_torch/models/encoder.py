@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepreadmapper_tpu_torch import default_device
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.models.gru import gru_proj_last, gru_proj_seq
 from deepreadmapper_tpu_torch.tokenizer_device import tokens_from_packed
 
@@ -126,7 +126,7 @@ class Vectorizer:
 
     def __init__(self, params: dict | None = None, device_batch: int = 8192,
                  device: torch.device | str | None = None):
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         self.encoder = Encoder(params).to(self.device)
         self.device_batch = device_batch
 
@@ -154,7 +154,7 @@ class Vectorizer:
         )
 
     def vectorize(self, seqs: list[str]) -> np.ndarray:
-        from deepreadmapper_tpu import tokenizer as tok
+        from deepreadmapper_tpu_torch import tokenizer as tok
 
         return self.vectorize_tokens(tok.tokenize_strings(seqs, MAX_LEN))
 

@@ -3,37 +3,42 @@
 engine files.
 
 Counterpart of ``deepreadmapper_tpu/pipeline/build.py`` for the FLAT,
-INT8FLAT and PQFLAT engines.  The on-disk result is the JAX package's:
+INT8FLAT, PQFLAT, IVFINT8 and IVFPQ engines.  The on-disk result is the JAX package's:
 either package loads an index the other built.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
 
-from deepreadmapper_tpu import native
-from deepreadmapper_tpu import tokenizer as tok
-from deepreadmapper_tpu.config import BuildConfig
-from deepreadmapper_tpu.io import fasta as fasta_io
-from deepreadmapper_tpu.io.configstore import save_config
-from deepreadmapper_tpu.io.fastq import parse_fastq_bytes
-from deepreadmapper_tpu.io.fileio import true_ext
-from deepreadmapper_tpu.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
-from deepreadmapper_tpu.io.results import load_embeddings_npy
-from deepreadmapper_tpu.utils.memory import estimate_window_count
-from deepreadmapper_tpu.utils.progress import Progress
-from deepreadmapper_tpu_torch import not_ported
+from deepreadmapper_tpu_torch import native
+from deepreadmapper_tpu_torch import tokenizer as tok
+from deepreadmapper_tpu_torch.config import BuildConfig
+from deepreadmapper_tpu_torch.io import fasta as fasta_io
+from deepreadmapper_tpu_torch.io.configstore import save_config
+from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes
+from deepreadmapper_tpu_torch.io.fileio import true_ext
+from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
+from deepreadmapper_tpu_torch.io.results import load_embeddings_npy
+from deepreadmapper_tpu_torch.utils.memory import estimate_window_count
+from deepreadmapper_tpu_torch.utils.progress import Progress
+from deepreadmapper_tpu_torch import not_ported, resolve_device
 from deepreadmapper_tpu_torch.index.flat import FlatIndex
 from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex, quantize
+from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
+from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
 from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
 from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer
 from deepreadmapper_tpu_torch.ops import pq as pq_ops
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 
-PORTED_ENGINES = ("INT8FLAT", "FLAT", "PQFLAT")
+PORTED_ENGINES = ("INT8FLAT", "FLAT", "PQFLAT", "IVFINT8", "IVFPQ")
+_PQ_ENGINES = ("PQFLAT", "IVFPQ")
+_INT8_ENGINES = ("INT8FLAT", "IVFINT8")
 INT8_SCALE = 1.0 / 127.0  # encoder outputs are tanh-bounded in [-1, 1]
 
 
@@ -120,7 +125,7 @@ def embed_input_file(path: str, ref_len: int, stride: int,
 
 def _pq_stream_encode(records, ref_len: int, stride: int, cfg: BuildConfig,
                       vectorizer: Vectorizer):
-    """Two-pass stream-encode of a FASTA reference for PQFLAT.
+    """Two-pass stream-encode of a FASTA reference for PQFLAT and IVFPQ.
 
     Pass A embeds an evenly spaced window sample (the reference trains on a
     50% evenly spaced sample; capped at 262,144 vectors, ample for 8 x 256
@@ -163,12 +168,18 @@ def build_index(
     index_type: str = "INT8FLAT",
     build_cfg: BuildConfig | None = None,
     device: torch.device | str | None = None,
+    timings: dict | None = None,
 ) -> dict:
-    """Build + persist an index directory; returns the saved config."""
+    """Build + persist an index directory; returns the saved config.
+    device defaults to the CUDA device (raises without one).  timings, when
+    a dict, gets the seconds of each build phase (embed, the IVF engines'
+    kmeans / assign / split_pack, save)."""
     if index_type not in PORTED_ENGINES:
         raise not_ported(f"index type {index_type}")
+    device = resolve_device(device)
+    t = timings if timings is not None else {}
     cfg = build_cfg or BuildConfig(stride=stride)
-    if cfg.opq and index_type != "PQFLAT":
+    if cfg.opq and index_type not in _PQ_ENGINES:
         print(f"[BUILD INDEX] WARNING: --opq only applies to PQFLAT/IVFPQ; "
               f"ignored for {index_type}")
     vectorizer = Vectorizer(device=device)
@@ -181,37 +192,63 @@ def build_index(
         elif index_type == "INT8FLAT":
             total = nv * OUT_SIZE
             detail = f"int8 codes {total / 1e6:.1f}"
+        elif index_type == "IVFINT8":
+            total = int(nv * OUT_SIZE / 0.8)  # slab fill ~0.8 (the JAX package's)
+            detail = f"int8 slabs {total / 1e6:.1f}"
+        elif index_type == "IVFPQ":
+            # packed codes + fp32 recon norms, over the ~0.8 slab fill
+            total = int(nv * (cfg.m_pq + 4) / 0.8)
+            detail = f"pq slabs {total / 1e6:.1f}"
         else:
             total = nv * OUT_SIZE * 4
             detail = f"fp32 vectors {total / 1e6:.1f}"
         print(f"[BUILD INDEX] ~{nv} vectors; estimated index memory "
               f"{total / 1e6:.1f} MB ({detail})")
 
-    if index_type == "PQFLAT" and ext in FASTA_EXTS:
+    t0 = time.perf_counter()
+    if index_type in _PQ_ENGINES and ext in FASTA_EXTS:
         records = fasta_io.parse_fasta_records(ref_file)
         codes, cb, rot = _pq_stream_encode(records, ref_len, stride, cfg, vectorizer)
-        engine = PQFlatIndex(codes, cb, codes.shape[0], rot, device)
+        t["embed"] = time.perf_counter() - t0
+        if codes.shape[0] == 0:
+            raise ValueError(f"No sequences found in file: {ref_file}")
+        if index_type == "IVFPQ":
+            engine = IVFPQIndex.build_from_codes(codes, cb, cfg, rot=rot, device=device,
+                                                 timings=t)
+        else:
+            engine = PQFlatIndex(codes, cb, codes.shape[0], rot, device)
         n_vects, dim = codes.shape[0], OUT_SIZE  # codes, not embeddings
-    elif index_type == "INT8FLAT" and ext in FASTA_EXTS:
+    elif index_type in _INT8_ENGINES and ext in FASTA_EXTS:
         # Quantize every embedding chunk on the device before collection:
-        # only the 128 B/window codes are downloaded.
+        # only the 128 B/window codes are downloaded.  Encoder outputs are
+        # tanh-bounded, so the fixed 1/127 scale is what build() would derive.
         records = fasta_io.parse_fasta_records(ref_file)
         codes = embed_fasta_windows(
             records, ref_len, stride, vectorizer,
             chunk_transform=lambda e: quantize(e, INT8_SCALE),
         )
-        engine = Int8FlatIndex(codes, INT8_SCALE, codes.shape[0], device)
+        t["embed"] = time.perf_counter() - t0
+        if codes.shape[0] == 0:
+            raise ValueError(f"No sequences found in file: {ref_file}")
+        if index_type == "IVFINT8":
+            engine = IVFInt8Index.build_from_codes(codes, INT8_SCALE, cfg, device=device,
+                                                   timings=t)
+        else:
+            engine = Int8FlatIndex(codes, INT8_SCALE, codes.shape[0], device)
         n_vects, dim = codes.shape
     else:
         embeddings = embed_input_file(ref_file, ref_len, stride, vectorizer)
-        if index_type == "PQFLAT":
-            engine = PQFlatIndex.build(embeddings, cfg, device)
+        t["embed"] = time.perf_counter() - t0
+        if embeddings.shape[0] == 0:
+            raise ValueError(f"No sequences found in file: {ref_file}")
+        if index_type in ("PQFLAT", "IVFPQ", "IVFINT8"):
+            cls = {"PQFLAT": PQFlatIndex, "IVFPQ": IVFPQIndex,
+                   "IVFINT8": IVFInt8Index}[index_type]
+            engine = cls.build(embeddings, cfg, device)
         else:
             cls = Int8FlatIndex if index_type == "INT8FLAT" else FlatIndex
             engine = cls.build(embeddings, device)
         n_vects, dim = embeddings.shape
-    if n_vects == 0:
-        raise ValueError(f"No sequences found in file: {ref_file}")
 
     basename = os.path.basename(os.path.normpath(index_prefix))
     config = {
@@ -226,7 +263,9 @@ def build_index(
         "nbits": cfg.nbits,
         "index_file": os.path.join(index_prefix, basename + ".index"),
     }
+    t0 = time.perf_counter()
     os.makedirs(index_prefix, exist_ok=True)
     engine.save(index_prefix)
     save_config(config, index_prefix)  # last: config.txt marks a complete build
+    t["save"] = time.perf_counter() - t0
     return config

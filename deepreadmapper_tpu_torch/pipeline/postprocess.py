@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from deepreadmapper_tpu_torch import default_device
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.ops.sw import sw_scores
 from deepreadmapper_tpu_torch.ops.topk import as_f32, smallest_k
 
@@ -60,7 +60,7 @@ def expand_candidates(
         cand = np.where(valid, cand, -1)
         return cand.reshape(q, -1), valid.reshape(q, -1)
 
-    from deepreadmapper_tpu.io.fasta import record_of
+    from deepreadmapper_tpu_torch.io.fasta import record_of
 
     st = sparse & 1
     r, w_loc = record_of(sparse >> 1, sparse_off)
@@ -150,7 +150,7 @@ def post_process_sw(
         cand_ids, _ = expand_candidates(
             neighbors, stride, bound, k_clusters, sparse_off, dense_off
         )
-    dev = torch.device(device) if device is not None else default_device()
+    dev = resolve_device(device)
     t = {"fetch": 0.0, "sw": 0.0, "sort": 0.0}
     q, c = cand_ids.shape
     out_ids = np.empty((q, k), dtype=np.int64)

@@ -14,16 +14,17 @@ import time
 
 import numpy as np
 
-from deepreadmapper_tpu import native
-from deepreadmapper_tpu import tokenizer as tok
-from deepreadmapper_tpu.config import SearchConfig
-from deepreadmapper_tpu.io import fasta as fasta_io
-from deepreadmapper_tpu.io import sam as sam_io
-from deepreadmapper_tpu.io.fastq import parse_fastq_bytes
-from deepreadmapper_tpu.io.fileio import true_ext
-from deepreadmapper_tpu.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
-from deepreadmapper_tpu.io.results import load_embeddings_npy, save_results
-from deepreadmapper_tpu_torch import not_ported
+from deepreadmapper_tpu_torch import native
+from deepreadmapper_tpu_torch import tokenizer as tok
+from deepreadmapper_tpu_torch.config import SearchConfig
+from deepreadmapper_tpu_torch.io import fasta as fasta_io
+from deepreadmapper_tpu_torch.io import sam as sam_io
+from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes
+from deepreadmapper_tpu_torch.io.fileio import true_ext
+from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
+from deepreadmapper_tpu_torch.io.results import load_embeddings_npy, save_results
+from deepreadmapper_tpu_torch import not_ported, resolve_device
+from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.registry import load_index
 from deepreadmapper_tpu_torch.models.encoder import Vectorizer, load_params
 from deepreadmapper_tpu_torch.pipeline import postprocess as pp
@@ -81,6 +82,7 @@ def run_pipeline(
     write_sam: bool = True,
     vectorizer: Vectorizer | None = None,
     device=None,
+    search_stats: dict | None = None,
 ) -> dict:
     """Run the pipeline; returns a timing/result summary.
 
@@ -90,11 +92,14 @@ def run_pipeline(
     dense_rerank=True re-embeds and exactly reranks the search candidates
     on a dense (stride 1) index on the L2 path; indices.npy / distances.npy
     then hold the reranked sqrt-L2 results.  Otherwise they hold the raw
-    search results."""
+    search results.  ef is nprobe for the IVF engines; search_stats, when a
+    dict, receives their search-effort counters (other engines ignore it).
+    device defaults to the CUDA device (raises without one)."""
     if rerank not in ("l2", "sw"):
         raise ValueError(f"unknown rerank {rerank!r} (l2 | sw)")
     if use_streaming:
         raise not_ported("use_streaming")
+    device = resolve_device(device)
     scfg = SearchConfig()
     ef = ef if ef is not None else scfg.ef
     k = k if k is not None else scfg.k
@@ -115,7 +120,11 @@ def run_pipeline(
     t_embed = time.time() - t0
 
     t0 = time.time()
-    neighbors, distances = engine.search(query_emb, k_clusters, ef)
+    if search_stats is not None and isinstance(engine, IVFInt8Index):
+        neighbors, distances = engine.search(query_emb, k_clusters, ef,
+                                             stats=search_stats)
+    else:
+        neighbors, distances = engine.search(query_emb, k_clusters, ef)
     t_search = time.time() - t0
 
     os.makedirs(output_dir, exist_ok=True)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deepreadmapper_tpu.tokenizer import CHAR_VAL, HASH_TO_ID, MAX_LEN
+from deepreadmapper_tpu_torch.tokenizer import CHAR_VAL, HASH_TO_ID, MAX_LEN
 
 N_BASES_MAX = MAX_LEN  # bases 0..122 can influence the 123 tokens
 PACKED_WIDTH = (N_BASES_MAX + 3) // 4    # 31
@@ -27,7 +27,7 @@ WIRE_WIDTH = PACKED_WIDTH + NMASK_WIDTH + 1  # 48
 def pack_wrapped(mat: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Pack a wrapped byte matrix into wire rows: native C++ when the
     library builds, else the numpy version.  Returns uint8 [N, 48]."""
-    from deepreadmapper_tpu import native
+    from deepreadmapper_tpu_torch import native
 
     if native.available():
         return native.pack_wrapped(mat, lengths)

@@ -245,3 +245,112 @@ def test_pqflat_sw_pipeline_cli_on_cuda(cuda, data_dir, tmp_path):
     _, names = fastq.parse_fastq(fq)
     top1 = sum(abs(int(r[3]) - int(nm.split("_")[1])) <= 2 for r, nm in zip(prim, names))
     assert top1 >= 135
+
+
+def _ivf_plan(rng, visit_chunks, n_chunks, n_visits, nq):
+    """A chunk-step plan: visit v scans len visit_chunks[v] consecutive
+    chunks (visits past the list get no steps); qidx rows are distinct
+    queries per visit, 20% padding to the dump row nq."""
+    sc, sv = [], []
+    for v, nc in enumerate(visit_chunks):
+        c0 = int(rng.integers(0, n_chunks - nc))
+        sc += list(range(c0, c0 + nc))
+        sv += [v] * nc
+    qidx = np.stack([np.where(rng.random(32) < 0.8, rng.permutation(nq)[:32], nq)
+                     for _ in range(n_visits)])
+    return (np.array(sc, np.int32), np.array(sv + [-1], np.int32),
+            qidx.astype(np.int32))
+
+
+def _ivf_inputs(cuda, amp, seed=8, n_chunks=6):
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-amp, amp + 1, (n_chunks, ik.CHK, 128)).astype(np.int8)
+    codes[-1] = 0
+    codes[1, 1500:] = 0
+    rn = (codes.astype(np.int64) ** 2).sum(-1).astype(np.float32)
+    rn[1, 1500:] = rn[-1] = np.float32(3.4e38)
+    sc, sv, qidx = _ivf_plan(rng, [1, 3, 2, 1, 2], n_chunks, 7, 50)
+    q = rng.integers(-127, 128, (7, 32, 128)).astype(np.int8)
+    return rng, [torch.from_numpy(a).to(cuda) for a in (sc, sv, qidx, q, codes, rn)]
+
+
+@pytest.mark.parametrize("ratio", [1.0, 1.3])
+@pytest.mark.parametrize("amp", [127, 2])  # amp 2: many exact ties
+def test_ivf_chunk_int8_kernels_match_plain(cuda, ratio, amp):
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+
+    _, (sc, sv, qidx, q, codes, rn) = _ivf_inputs(cuda, amp)
+    ratio2 = 2.0 * float(np.float32(ratio))
+    before = kernels.IVF_CHUNK_INT8.launches
+    got = ik.ivf_chunk_scan_int8(sc, sv, q, codes, rn, ratio2)
+    assert kernels.IVF_CHUNK_INT8.launches == before + 1
+    want = ik.ivf_chunk_scan_int8_reference(sc, sv, q, codes, rn, ratio2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    before = kernels.IVF_CHUNK_INT8_FOLD.launches
+    got = ik.ivf_chunk_scan_int8_fold(sc, sv, qidx, q, codes, rn, ratio2, 50)
+    assert kernels.IVF_CHUNK_INT8_FOLD.launches == before + 1
+    want = ik.ivf_chunk_scan_int8_fold_reference(sc, sv, qidx, q, codes, rn, ratio2, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:50].view(torch.int32), want[:50].view(torch.int32))
+
+
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8)])
+@pytest.mark.parametrize("ratio", [1.0, 1.3])
+def test_ivf_chunk_pq_kernels_match_plain(cuda, m, nbits, ratio):
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+
+    rng, (sc, sv, qidx, q, _codes, rn) = _ivf_inputs(cuda, 127)
+    ksub = 1 << nbits
+    n_chunks = rn.shape[0]
+    packed = torch.tensor(rng.integers(-2**31, 2**31, (n_chunks, -(-m // 4), ik.CHK)),
+                          dtype=torch.int32)
+    packed = (packed & torch.tensor(int(np.uint32(0x01010101 * (ksub - 1)).view(np.int32)),
+                                    dtype=torch.int32)).to(cuda)
+    cent2d = torch.tensor(rng.integers(-127, 128, (m * ksub, 128 // m)),
+                          dtype=torch.int8).to(cuda)
+    ratio2 = 2.0 * float(np.float32(ratio))
+    before = kernels.IVF_CHUNK_PQ.launches
+    got = ik.ivf_chunk_scan_pq(sc, sv, q, packed, rn, cent2d, ratio2, m)
+    assert kernels.IVF_CHUNK_PQ.launches == before + 1
+    want = ik.ivf_chunk_scan_pq_reference(sc, sv, q, packed, rn, cent2d, ratio2, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    before = kernels.IVF_CHUNK_PQ_FOLD.launches
+    got = ik.ivf_chunk_scan_pq_fold(sc, sv, qidx, q, packed, rn, cent2d, ratio2, m, 50)
+    assert kernels.IVF_CHUNK_PQ_FOLD.launches == before + 1
+    want = ik.ivf_chunk_scan_pq_fold_reference(sc, sv, qidx, q, packed, rn, cent2d,
+                                               ratio2, m, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:50].view(torch.int32), want[:50].view(torch.int32))
+
+
+@pytest.mark.parametrize("index_type", ["IVFINT8", "IVFPQ"])
+def test_ivf_search_on_cuda_matches_cpu(cuda, index_type, monkeypatch):
+    """All three routes (fused, host packed, host fold) on the card give the
+    CPU's ids and distances on the same index."""
+    from deepreadmapper_tpu_torch.config import BuildConfig
+    from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
+    from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
+
+    rng = np.random.default_rng(9)
+    centers = np.tanh(rng.standard_normal((64, 128))).astype(np.float32)
+    x = np.clip(centers[rng.integers(0, 64, 6000)]
+                + 0.05 * rng.standard_normal((6000, 128)).astype(np.float32), -1, 1)
+    cls = IVFInt8Index if index_type == "IVFINT8" else IVFPQIndex
+    cpu = cls.build(x, BuildConfig(nlist=8), device="cpu")
+    gpu_idx = (IVFInt8Index(cpu.codes_cm, cpu.centroids, cpu.row_ids, cpu.slab_of, cpu.scale,
+                            cpu.ntotal, cpu.cap, cpu.n_slabs, device=cuda)
+               if cls is IVFInt8Index else
+               IVFPQIndex(cpu.codes_cm, cpu.centroids, cpu.row_ids, cpu.slab_of,
+                          cpu.codebook, cpu.ntotal, cpu.cap, cpu.n_slabs, device=cuda))
+    q = x[:40] + np.float32(0.01)
+    for fused, fold in ((8192, 4096), (0, 4096), (0, 1)):
+        monkeypatch.setattr(cls, "_FUSED_MAX_PAIRS", fused)
+        monkeypatch.setattr(cls, "_FOLD_MIN_Q", fold)
+        ci, cd = cpu.search(q, 10, ef=4)
+        gi, gd = gpu_idx.search(q, 10, ef=4)
+        np.testing.assert_array_equal(gi, ci)
+        np.testing.assert_array_equal(gd, cd)

@@ -100,7 +100,7 @@ def test_index_files_cross_load(tmp_path, engine):
 def test_load_index_refuses_unported(tmp_path):
     from deepreadmapper_tpu.io.configstore import save_config
 
-    save_config({"index_type": "IVFINT8", "stride": 1, "ref_len": 150},
+    save_config({"index_type": "HNSWPQ", "stride": 1, "ref_len": 150},
                 str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         load_index(str(tmp_path), device="cpu")

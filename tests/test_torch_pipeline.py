@@ -41,11 +41,11 @@ def _run_both(data_dir, tmp_path, build_extra=(), pipe_extra=(),
     fna = str(data_dir / "ecoli_150.fna")
     fq = str(data_dir / "test_data.fastq")
     out = {}
-    for tag, cli in (("jax", jcli), ("torch", tcli)):
+    for tag, cli, dev in (("jax", jcli, ()), ("torch", tcli, ("--device", "cpu"))):
         idx, res = str(tmp_path / f"{tag}_idx"), str(tmp_path / f"{tag}_out")
-        assert cli.main(["build-index", fna, idx, "150", *build_extra]) == 0
+        assert cli.main(["build-index", fna, idx, "150", *build_extra, *dev]) == 0
         assert cli.main(["pipeline", idx, fq, fna, *pipe_args, res,
-                         *pipe_extra]) == 0
+                         *pipe_extra, *dev]) == 0
         out[tag] = (np.load(os.path.join(res, "indices.npy")).astype(np.int64),
                     np.load(os.path.join(res, "distances.npy")),
                     res)
@@ -86,32 +86,41 @@ def test_cli_refuses_unported_features(data_dir, tmp_path):
 
     fna = str(data_dir / "ecoli_150.fna")
     for argv in (
-        ["build-index", fna, str(tmp_path / "a"), "150", "--index-type", "IVFINT8"],
+        ["build-index", fna, str(tmp_path / "a"), "150", "--index-type", "HNSWPQ"],
         ["build-index", fna, str(tmp_path / "a"), "150", "--resume"],
         ["build-index", fna, str(tmp_path / "a"), "150", "--shards", "2"],
         ["pipeline", str(tmp_path / "a"), fna, fna, "--mapq"],
         ["pipeline", str(tmp_path / "a"), fna, fna, "--long-reads"],
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(argv)
+            cli.main([*argv, "--device", "cpu"])
 
 
 def test_port_cli_never_imports_jax(data_dir, tmp_path):
-    """build-index -> pipeline through the port's CLI in a fresh process,
-    then assert jax was never imported."""
+    """build-index -> pipeline through the port's CLI in a fresh process
+    (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8), then assert that
+    neither jax nor any module of the JAX package was imported."""
     code = (
         "import sys\n"
         "from deepreadmapper_tpu_torch import cli\n"
         f"fna, fq, d = {str(data_dir / 'ecoli_150.fna')!r}, "
         f"{str(data_dir / 'test_data.fastq')!r}, {str(tmp_path)!r}\n"
-        "assert cli.main(['build-index', fna, d + '/idx', '150']) == 0\n"
+        "dev = ['--device', 'cpu']\n"
+        "assert cli.main(['build-index', fna, d + '/idx', '150', *dev]) == 0\n"
         "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '128', '5',"
-        " d + '/out']) == 0\n"
+        " d + '/out', *dev]) == 0\n"
         "assert cli.main(['build-index', fna, d + '/pq', '150', '--index-type',"
-        " 'PQFLAT', '--opq']) == 0\n"
+        " 'PQFLAT', '--opq', *dev]) == 0\n"
         "assert cli.main(['pipeline', d + '/pq', fq, fna, '128', '10', '128',"
-        " d + '/pq_out', '--rerank', 'sw']) == 0\n"
+        " d + '/pq_out', '--rerank', 'sw', *dev]) == 0\n"
+        "assert cli.main(['build-index', fna, d + '/ivf', '150', '--index-type',"
+        " 'IVFINT8', *dev]) == 0\n"
+        "assert cli.main(['pipeline', d + '/ivf', fq, fna, '32', '16', '16',"
+        " d + '/ivf_out', *dev]) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = sorted(m for m in sys.modules if m == 'deepreadmapper_tpu'"
+        " or m.startswith('deepreadmapper_tpu.'))\n"
+        "assert not bad, f'the JAX package was imported: {bad}'\n"
         "print('NO-JAX-OK')\n"
     )
     env = dict(os.environ, OMP_NUM_THREADS="2")
@@ -121,6 +130,25 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     assert "NO-JAX-OK" in proc.stdout
     assert os.path.exists(tmp_path / "out" / "indices.npy")
     assert os.path.exists(tmp_path / "pq_out" / "results.sam")
+    assert os.path.exists(tmp_path / "ivf_out" / "indices.npy")
+
+
+@pytest.mark.parametrize("cmd", ["build-index", "pipeline"])
+def test_cli_without_a_card_fails_and_writes_nothing(data_dir, tmp_path, cmd):
+    """Without --device cpu and with no CUDA device visible, each command
+    exits non-zero with the device error and writes no output."""
+    fna = str(data_dir / "ecoli_150.fna")
+    fq = str(data_dir / "test_data.fastq")
+    out = tmp_path / "out"
+    argv = (["build-index", fna, str(out), "150"] if cmd == "build-index" else
+            ["pipeline", str(tmp_path / "idx"), fq, fna, "128", "128", "5", str(out)])
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", "deepreadmapper_tpu_torch", *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is visible" in proc.stderr
+    assert "--device cpu" in proc.stderr
+    assert not out.exists()
 
 
 def _sam_ids(res, n_reads, k):
@@ -187,3 +215,57 @@ def test_pqflat_sw_rerank_matches_jax_cli(data_dir, tmp_path, build_extra, pipe_
     clear = ~affected & (sc[:, 0] != sc[:, 1])
     assert clear.sum() >= 100
     np.testing.assert_array_equal(tids[clear, 0], jids[clear, 0])
+
+
+# The JAX CLI in a fresh process, its IVF scans in Pallas interpret mode.
+_JAX_CLI_INTERPRET = (
+    "import sys\n"
+    "import jax\n"
+    "jax.config.update('jax_platforms', 'cpu')\n"
+    "from deepreadmapper_tpu.ops import ivf_kernel as ik\n"
+    "ik.INTERPRET = True\n"
+    "from deepreadmapper_tpu import cli\n"
+    "raise SystemExit(cli.main(sys.argv[1:]))\n"
+)
+
+
+@pytest.mark.parametrize("index_type,build_extra", [("IVFINT8", ()), ("IVFPQ", ("--opq",))])
+def test_ivf_pipeline_matches_jax_cli_on_one_index(data_dir, tmp_path, index_type,
+                                                   build_extra):
+    """build-index through the port's CLI; pipeline through both CLIs on that
+    saved index and the same query embeddings (the port's encoder, saved as
+    .npy, so both search identical queries).  indices.npy and distances.npy
+    are equal.  From the FASTQ the port's pipeline finds the reads and hands
+    back the engine's search-effort counters."""
+    from deepreadmapper_tpu_torch import cli as tcli
+    from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.pipeline.search import run_pipeline
+
+    fna = str(data_dir / "ecoli_150.fna")
+    fq = str(data_dir / "test_data.fastq")
+    idx = str(tmp_path / "idx")
+    assert tcli.main(["build-index", fna, idx, "150", "--index-type", index_type,
+                      *build_extra, "--device", "cpu"]) == 0
+    mat, lengths, _ = parse_fastq_bytes(fq)
+    qfile = str(tmp_path / "queries.npy")
+    np.save(qfile, Vectorizer(device="cpu").vectorize_wrapped_bytes(mat, lengths))
+    pipe = ["pipeline", idx, qfile, fna, "8", "16", "16"]
+    assert tcli.main([*pipe, str(tmp_path / "t_out"), "--device", "cpu"]) == 0
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", _JAX_CLI_INTERPRET, *pipe,
+                           str(tmp_path / "j_out")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for name in ("indices.npy", "distances.npy"):
+        np.testing.assert_array_equal(np.load(tmp_path / "t_out" / name),
+                                      np.load(tmp_path / "j_out" / name))
+    stats = {}
+    run_pipeline(idx, fq, fna, 8, 16, 16, str(tmp_path / "fq_out"), write_sam=False,
+                 device="cpu", search_stats=stats)
+    _, names = fastq.parse_fastq(fq)
+    hits = _truth_hits(np.load(tmp_path / "fq_out" / "indices.npy"), names)
+    assert hits >= 135, hits
+    # the search-effort counters reach the caller, as in the JAX pipeline
+    assert stats["queries"] == 150 and stats["nprobe"] == 8
+    assert 0 < stats["coverage"] <= 1 and stats["centroid_evals_per_query"] >= 8

@@ -35,7 +35,7 @@ def test_tokens_from_packed_matches_jax(data_dir, source):
         mat, lengths = _wire(_edge_reads())
     wire = ttd.pack_wrapped_numpy(mat, lengths)
     want = np.asarray(jtd.tokens_from_packed(jnp.asarray(wire)))
-    got = ttd.tokens_from_packed(torch.from_numpy(wire)).numpy()
+    got = ttd.tokens_from_packed(torch.as_tensor(wire, device="cpu")).numpy()
     np.testing.assert_array_equal(got, want)
     # and both equal the host tokenizer on wrapped input
     np.testing.assert_array_equal(got, tok.tokenize_bytes(mat, lengths))
