@@ -67,7 +67,7 @@ JAX_SW_TOP1_READS = 1021
 IVF_GENOME_BP = 20_000_000          # 39,999,702 windows: the JAX package's IVF record shape
 IVF_NPROBE = 32
 IVF_KERNEL_ROWS = 1 << 21           # the IVF kernels' layout in phase 3 holds at least this
-# H100 SXM peaks (on-chip-measurement guide) for the bound of each kernel
+# H100 SXM peak rates (NVIDIA H100 datasheet) for the bound of each kernel
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12                # int8 tensor cores, dense
 FP32_OPS_S = 67e12                  # fp32 outside the tensor cores (an FMA is 2)
