@@ -30,8 +30,15 @@ Phases (any failure raises and the exit code is not 0):
   8. genome_ivfpq the same three routes on phase 6's genome and reads with
               --index-type IVFPQ; codes and codebook against phase 6's PQFLAT
               build, top-1 against its search
+  9. finetune on phase 5's genome: one training step's gradients on the
+              card against the same step on the CPU; the CLI's finetune at
+              its defaults (100 steps, batch 512, lr 1e-4; the loss must
+              fall); a profile of three steps; build-index --weights ->
+              pipeline on phase 5's reads (top-1 >= phase 5's - 0.01)
 Phase 3 also holds the four IVF chunk scans against their plain versions on
-a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan.
+a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan, and
+the GRU backward's cotangent recurrence at the training batch (512) and at
+8192.
 The last lines are one JSON object of kernel results (time, plain time,
 bound, library time, launches on the main path), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -53,6 +60,7 @@ WORK = os.path.join(ROOT, ".smoke")
 FIXTURE = os.path.join(ROOT, "tests", "data")
 
 GRU_B, GRU_T = 8192, 123
+TRAIN_B, TRAIN_STEPS = 512, 100     # the finetune CLI's default batch and steps
 SCAN_ROWS, SCAN_Q = 1 << 18, 8192
 SW_PAIRS = 65536                    # 512 reads x 128 candidates, 150 x 152 bytes
 GENOME_BP, N_READS, READ_LEN = 2_000_000, 8192, 150
@@ -217,6 +225,108 @@ def check_gru(results: dict):
         f"torch.nn.GRU {t_lib:.3f} ms | {ops / 1e9:.1f} GFLOP")
     results["gru_fwd"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain,
                           **bound(nbytes, ops, FP32_OPS_S), "library_ms": t_lib}
+
+
+def _bwd_inputs(b: int, reverse: bool, rng):
+    """Cotangent-recurrence inputs at [GRU_T, b, 64] on the card as the main
+    path makes them: the gates of a forward of the shipped layer 1 (in the
+    given direction) over uniform inputs, a normal cotangent, and rT."""
+    import torch
+
+    from deepreadmapper_tpu_torch.models import gru
+    from deepreadmapper_tpu_torch.models.encoder import load_params
+
+    layer = load_params()["layers"][0]
+    w, bzr, r, rbh = (torch.from_numpy(layer[k][int(reverse)]).cuda()
+                      for k in ("w", "bzr", "r", "rbh"))
+    x = torch.from_numpy(rng.uniform(-1, 1, (GRU_T, b, 64)).astype(np.float32)).cuda()
+    hs = gru.gru_proj_seq(x, w, bzr, r, rbh, reverse)
+    gates = gru.recompute_gates(x, w, bzr, r, rbh, hs, reverse)
+    ct = torch.from_numpy(rng.standard_normal((GRU_T, b, 64)).astype(np.float32)).cuda()
+    return [*gates, ct], r.T.contiguous()
+
+
+def check_gru_bwd(results: dict):
+    """Kernel #9 against its plain version at the training batch, at 8192
+    and at a ragged batch, both walks; CUDA-event times at 512 and 8192;
+    the whole two-layer GRU gradient beside cuDNN's."""
+    import torch
+
+    from deepreadmapper_tpu_torch.models import gru
+
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for b in (TRAIN_B, GRU_B, 1001):
+        for reverse in (False, True):
+            ins, rT = _bwd_inputs(b, reverse, rng)
+            got = gru.gru_bwd(*ins, rT, reverse)
+            want = gru.gru_bwd_reference(*ins, rT, reverse)
+            torch.cuda.synchronize()
+            errs = [(float((g - w).abs().max()), float(w.abs().max())) for g, w in zip(got, want)]
+            rel = max(e / m for e, m in errs)
+            tag = f"B={b} {'rev' if reverse else 'fwd'}"
+            if not (all(g.shape == w.shape for g, w in zip(got, want)) and rel <= 1e-5):
+                raise AssertionError(f"gru_bwd {tag}: max rel err {rel} > 1e-5")
+            worst = max([worst] + [e for e, _ in errs])
+            log(f"[kernels] gru_bwd {tag}: max abs err {max(e for e, _ in errs):.3e}, over "
+                f"the max abs value {rel:.3e} (tol 1e-5)")
+        del ins, got, want
+    times = {}
+    for b in (TRAIN_B, GRU_B):
+        ins, rT = _bwd_inputs(b, False, rng)
+        t_plain_a = cuda_time(lambda: gru.gru_bwd_reference(*ins, rT), 2)
+        t_kernel = cuda_time(lambda: gru.gru_bwd(*ins, rT), 20)
+        t_plain_b = cuda_time(lambda: gru.gru_bwd_reference(*ins, rT), 2)
+        # each sequence and step: 6 x 64 fp32 in, 2 x 192 fp32 out; 192 x 64 FMA
+        bd = bound(4.0 * GRU_T * b * (6 * 64 + 2 * 192), 2.0 * GRU_T * b * 192 * 64,
+                   FP32_OPS_S)
+        times[b] = (t_kernel, (t_plain_a + t_plain_b) / 2, bd)
+        log(f"[kernels] gru_bwd T={GRU_T} B={b}: kernel {t_kernel:.3f} ms | plain "
+            f"{t_plain_a:.3f} / {t_plain_b:.3f} ms | bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
+        del ins
+    t_kernel, t_plain, bd = times[TRAIN_B]
+    results["gru_bwd"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain, **bd,
+                          "library_ms": None}
+    _gru_grad_yardstick()
+
+
+def _gru_grad_yardstick():
+    """The two bidirectional layers' forward + backward at the training
+    batch: the port (kernels #1 and #9, the hoisted matmuls) beside cuDNN's
+    torch.nn.GRU (fp32, TF32 off), which the port never calls."""
+    import torch
+
+    from deepreadmapper_tpu_torch.models import gru
+    from deepreadmapper_tpu_torch.models.encoder import load_params
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x1 = torch.randn(GRU_T, TRAIN_B, 64, device="cuda", generator=gen, requires_grad=True)
+    lp = [{k: torch.from_numpy(layer[k]).cuda().requires_grad_() for k in layer}
+          for layer in load_params()["layers"]]
+
+    def port():
+        out1 = torch.cat([gru.gru_proj_seq(x1, lp[0]["w"][d], lp[0]["bzr"][d], lp[0]["r"][d],
+                                           lp[0]["rbh"][d], bool(d)) for d in (0, 1)], -1)
+        h_t = torch.cat([gru.gru_proj_last(out1, lp[1]["w"][d], lp[1]["bzr"][d],
+                                           lp[1]["r"][d], lp[1]["rbh"][d], bool(d))
+                         for d in (0, 1)], -1)
+        h_t.sum().backward()
+
+    lib1 = torch.nn.GRU(64, 64, bidirectional=True).cuda()
+    lib2 = torch.nn.GRU(128, 64, bidirectional=True).cuda()
+
+    def library():
+        out1, _ = lib1(x1)
+        _, h_n = lib2(out1)
+        h_n.sum().backward()
+
+    t_lib_a = cuda_time(library, 10)
+    t_port = cuda_time(port, 10)
+    t_lib_b = cuda_time(library, 10)
+    log(f"[kernels] GRU forward + backward, 2 bidirectional layers, T={GRU_T} B={TRAIN_B} "
+        f"fp32: port (kernels #1, #9 + matmuls) {t_port:.3f} ms | cuDNN torch.nn.GRU "
+        f"{t_lib_a:.3f} / {t_lib_b:.3f} ms")
 
 
 def check_int8(results: dict):
@@ -678,10 +788,7 @@ def phase_genome(results: dict):
     for name in ("gru_fwd", "int8_winmin"):
         results[name]["launches"] = launches[name]
 
-    ids = np.load(os.path.join(out, "indices.npy")).astype(np.int64)
-    top = ids[:, 0]
-    ok = (np.abs((top >> 1) - starts) <= 5) & ((top & 1) == strands)
-    top1 = float(ok.mean())
+    top1 = _top1(np.load(os.path.join(out, "indices.npy")), starts, strands)
     log(f"[genome] top-1 (position +-5 bp and strand): {top1:.4f} (need >= 0.99)")
     if top1 < 0.99:
         raise AssertionError(f"genome top-1 {top1} < 0.99")
@@ -726,6 +833,7 @@ def phase_genome(results: dict):
         raise AssertionError("genome-scale fused scan: kernel != plain version")
     log(f"[genome] fused scan over {codes.shape[0]} rows x 1024 reads: "
         "kernel-driven == plain-driven")
+    return {"ref": ref, "fq": fq, "starts": starts, "strands": strands, "top1": top1}
 
 
 def phase_genome_pq(results: dict):
@@ -1103,6 +1211,178 @@ def phase_genome_ivfpq(results: dict, pqflat: dict):
                 4 * -(-engine.codes_cm.shape[1] // 4) + 4)
 
 
+_PROFILE_GROUPS = (  # kernel-name fragment -> part of a training step
+    ("gru_fwd", "GRU forward (#1)"), ("gru_bwd", "GRU backward (#9)"),
+    ("gemm", "matmuls"), ("Kernel2", "matmuls"), ("index", "embedding gather/scatter"),
+    ("sort", "embedding gather/scatter"), ("multi_tensor", "Adam"), ("adam", "Adam"),
+    ("Memcpy", "copies"), ("Memset", "copies"),
+)
+
+
+def _profile_steps(params, opt, batches) -> None:
+    """torch.profiler over a few training steps: device time by part of the
+    step, and the device's busy share of the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepreadmapper_tpu_torch.parallel.train import train_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rt, wt in batches:
+            train_step(params, opt, rt, wt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    parts: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = float(e.self_device_time_total)
+        if e.device_type != DeviceType.CUDA or us <= 0:  # kernels, copies, memsets
+            continue
+        part = next((p for frag, p in _PROFILE_GROUPS if frag.lower() in e.key.lower()),
+                    "other elementwise")
+        parts[part] = parts.get(part, 0.0) + us
+    busy = sum(parts.values()) / 1e3
+    n = len(batches)
+    if busy <= 0:
+        log("[finetune] profiler: no device time recorded")
+        return
+    split = " | ".join(f"{k} {v / 1e3 / n:.2f} ms" for k, v in
+                       sorted(parts.items(), key=lambda kv: -kv[1]))
+    log(f"[finetune] profile of {n} steps (profiler on): wall {wall * 1e3 / n:.2f} ms/step, "
+        f"device busy {busy / n:.2f} ms/step ({busy / (wall * 1e3):.1%}); per step: {split}")
+
+
+def phase_finetune(results: dict, genome: dict):
+    """finetune -> build-index --weights -> pipeline on phase 5's genome and
+    reads: kernels #9 and #1 on the training path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, kernels
+    from deepreadmapper_tpu_torch.io import fasta as fasta_io
+    from deepreadmapper_tpu_torch.models import encoder as enc
+    from deepreadmapper_tpu_torch.parallel import train
+    from deepreadmapper_tpu_torch.pipeline import finetune as ft
+
+    ref, fq = genome["ref"], genome["fq"]
+    work = os.path.join(WORK, "finetune")
+    os.makedirs(work, exist_ok=True)
+    seq = fasta_io.extract_fasta_sequence(ref)
+
+    # 1. one step's gradients: the card (kernels) against the CPU (plain)
+    rt, wt = ft.sample_pairs(seq, READ_LEN, TRAIN_B, np.random.default_rng(0))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        params = enc.torch_params(enc.load_params(), dev, requires_grad=True)
+        t0 = time.perf_counter()
+        loss = train.loss_fn(params, torch.from_numpy(rt).to(dev), torch.from_numpy(wt).to(dev))
+        loss.backward()
+        grads[dev] = (loss.item(), [p.grad.cpu() for p in train.leaves(params)])
+        log(f"[finetune] one step's loss + gradients on {dev}: loss {grads[dev][0]:.6f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+    worst = 0.0
+    for g, c in zip(grads["cuda"][1], grads["cpu"][1]):
+        worst = max(worst, float((g - c).abs().max() / c.abs().max()))
+    log(f"[finetune] card vs CPU gradients, batch {TRAIN_B}: worst max abs diff / max abs "
+        f"value over the 9 tensors {worst:.3e} (need <= 1e-4)")
+    if worst > 1e-4:
+        raise AssertionError(f"finetune gradients: card vs CPU {worst} > 1e-4")
+
+    # 2. the CLI at its defaults; the losses are read off finetune's return,
+    # a host timestamp is taken where each step starts (sampling), and the
+    # optimizer's construction is timed
+    tuned = os.path.join(work, "tuned.npz")
+    seen, stamps, t_opt = {}, [], []
+    run, sample, make_opt = ft.finetune, ft.sample_pairs, ft.make_optimizer
+
+    def recording(*a, **kw):
+        seen["params"], seen["losses"] = run(*a, **kw)
+        return seen["params"], seen["losses"]
+
+    def stamped(*a, **kw):
+        stamps.append(time.perf_counter())
+        return sample(*a, **kw)
+
+    def timed_opt(*a, **kw):
+        t = time.perf_counter()
+        opt = make_opt(*a, **kw)
+        t_opt.append(time.perf_counter() - t)
+        return opt
+
+    dynamo_before = "torch._dynamo" in sys.modules
+    ft.finetune, ft.sample_pairs, ft.make_optimizer = recording, stamped, timed_opt
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["finetune", ref, str(READ_LEN), "-o", tuned])
+    finally:
+        ft.finetune, ft.sample_pairs, ft.make_optimizer = run, sample, make_opt
+    torch.cuda.synchronize()
+    t_ft = time.perf_counter() - t0
+    launches = kernels.counts()
+    if rc != 0:
+        raise AssertionError("finetune CLI failed")
+    losses = np.asarray(seen["losses"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    half = TRAIN_STEPS // 2
+    steady = (stamps[-1] - stamps[half - 1]) / (TRAIN_STEPS - half)
+    log(f"[finetune] CLI: {TRAIN_STEPS} steps of {TRAIN_B} pairs in {t_ft:.2f} s "
+        f"({TRAIN_STEPS / t_ft:.2f} steps/s, {TRAIN_STEPS * TRAIN_B / t_ft:.0f} pairs/s): "
+        f"set-up to the first step {stamps[0] - t0:.2f} s (of which torch.optim.Adam's "
+        f"construction {t_opt[0]:.2f} s; torch._dynamo loaded before it: {dynamo_before}), "
+        f"first step {stamps[1] - stamps[0]:.2f} s, steady {steady * 1e3:.2f} ms/step "
+        f"({1 / steady:.1f} steps/s, {TRAIN_B / steady:.0f} pairs/s; host clock between "
+        f"step starts, steps {half}-{TRAIN_STEPS}), last step + save "
+        f"{t0 + t_ft - stamps[-1]:.2f} s")
+    log(f"[finetune] loss mean of the first 10 steps {first:.4f}, of the last 10 "
+        f"{last:.4f}; launches {launches}")
+    if losses.size != TRAIN_STEPS or not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"finetune losses: {losses.tolist()}")
+    if launches["gru_bwd"] != 8 * TRAIN_STEPS or launches["gru_fwd"] != 12 * TRAIN_STEPS:
+        raise AssertionError(f"finetune launches: {launches} (want gru_bwd 8 and gru_fwd "
+                             "12 per step)")
+    results["gru_bwd"]["launches"] = launches["gru_bwd"]
+
+    # 3. where a step's time goes: host sampling, and the device by part
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    batches = [ft.sample_pairs(seq, READ_LEN, TRAIN_B, rng) for _ in range(3)]
+    t_sample = (time.perf_counter() - t0) / 3
+    log(f"[finetune] host sampling of {TRAIN_B} pairs: {t_sample * 1e3:.2f} ms per step")
+    params = enc.torch_params(seen["params"], "cuda", requires_grad=True)
+    opt = train.make_optimizer(params)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in b) for b in batches]
+    train.train_step(params, opt, *batches[0])  # warm
+    _profile_steps(params, opt, batches)
+
+    # 4. build-index --weights -> pipeline on phase 5's reads
+    idx, out = os.path.join(work, "idx"), os.path.join(work, "out")
+    buf = io.StringIO()
+    kernels.reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc_b = cli.main(["build-index", ref, idx, str(READ_LEN), "--weights", tuned])
+        rc_p = cli.main(["pipeline", idx, fq, ref, "128", "128", "5", out, "--no-sam"])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    sys.stdout.write(buf.getvalue())
+    if rc_b != 0 or rc_p != 0:
+        raise AssertionError("build-index --weights -> pipeline failed")
+    if "index-matched encoder weights" not in buf.getvalue():
+        raise AssertionError("the pipeline did not load the index's fine-tuned weights")
+    if launches["gru_fwd"] <= 0 or launches["int8_winmin"] <= 0:
+        raise AssertionError(f"fine-tuned index path missed a kernel: {launches}")
+    top1 = _top1(np.load(os.path.join(out, "indices.npy")), genome["starts"],
+                 genome["strands"])
+    log(f"[finetune] fine-tuned INT8FLAT index, {N_READS} reads: top-1 {top1:.4f} (need >= "
+        f"phase 5's {genome['top1']:.4f} - 0.01); launches {launches}")
+    if top1 < genome["top1"] - 0.01:
+        raise AssertionError(f"fine-tuned top-1 {top1} < {genome['top1']} - 0.01")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = phase_device()
@@ -1118,15 +1398,18 @@ def main() -> int:
     check_sw(results)
     check_pq(results)
     check_ivf(results)
+    check_gru_bwd(results)
     log(f"[time] phases 1-3 in {time.perf_counter() - t0:.1f} s")
     phase_fixture()
-    phase_genome(results)
+    genome = phase_genome(results)
     log(f"[time] phases 1-5 in {time.perf_counter() - t0:.1f} s")
     pqflat = phase_genome_pq(results)
     log(f"[time] phases 1-6 in {time.perf_counter() - t0:.1f} s")
     phase_genome_ivf(results)
     log(f"[time] phases 1-7 in {time.perf_counter() - t0:.1f} s")
     phase_genome_ivfpq(results, pqflat)
+    log(f"[time] phases 1-8 in {time.perf_counter() - t0:.1f} s")
+    phase_finetune(results, genome)
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -1148,6 +1431,7 @@ def main() -> int:
         "ivf_chunk_int8_fold": "deepreadmapper_tpu/ops/ivf_kernel.py:445",
         "ivf_chunk_pq": "deepreadmapper_tpu/ops/ivf_kernel.py:562",
         "ivf_chunk_pq_fold": "deepreadmapper_tpu/ops/ivf_kernel.py:669",
+        "gru_bwd": "deepreadmapper_tpu/models/gru_pallas.py:188",
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

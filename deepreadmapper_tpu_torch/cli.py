@@ -1,11 +1,13 @@
-"""Command-line entry points of the port: ``build-index`` and ``pipeline``,
-with the positional arguments of ``deepreadmapper_tpu/cli.py``.
+"""Command-line entry points of the port: ``build-index``, ``pipeline`` and
+``finetune``, with the positional arguments of ``deepreadmapper_tpu/cli.py``.
 
   pipeline     <index_prefix> <query> <ref> [ef k k_clusters output_dir
                use_dynamic use_streaming]
   build-index  <ref> <index_prefix> <ref_len> [stride M_pq nbits M_hnsw EFC]
+               [--weights tuned.npz]
+  finetune     <ref> <ref_len> [-o tuned.npz --steps --batch --lr ...]
 
-Both run on the CUDA device; ``--device cpu`` runs them on the CPU, and
+All run on the CUDA device; ``--device cpu`` runs them on the CPU, and
 without a card and without that flag they exit with status 2 before
 reading or writing anything.  Flags of the JAX CLI that the port does not
 have yet are accepted and raise NotImplementedError, so a command line
@@ -30,9 +32,7 @@ _PIPELINE_UNPORTED_VALUED = (
     "--max-isize", "--min-isize",
 )
 _BUILD_UNPORTED = ("--resume", "--distributed")
-_BUILD_UNPORTED_VALUED = (
-    "--weights", "--shards", "--level-mode", "--build-mode",
-)
+_BUILD_UNPORTED_VALUED = ("--shards", "--level-mode", "--build-mode")
 
 
 def _add_device(p):
@@ -86,11 +86,44 @@ def _add_build(sub):
                    help="learn an OPQ rotation before PQ (PQFLAT/IVFPQ)")
     p.add_argument("--nlist", type=int, default=0,
                    help="IVF coarse clusters (0 = auto, ~sqrt(N))")
+    p.add_argument("--weights", default=None, metavar="NPZ",
+                   help="fine-tuned encoder weights npz (finetune output): "
+                        "embeds the windows and is copied into the index, "
+                        "so pipeline embeds the queries with it")
     _add_device(p)
     for flag in _BUILD_UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
     for flag in _BUILD_UNPORTED_VALUED:
         p.add_argument(flag, default=None, help="not ported yet")
+
+
+def _add_finetune(sub):
+    p = sub.add_parser("finetune", help="fine-tune the encoder on a reference")
+    p.add_argument("ref_file")
+    p.add_argument("ref_len", type=int)
+    p.add_argument("-o", "--output", default="finetuned.npz")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sub-rate", type=float, default=0.01,
+                   help="substitution noise for simulated training reads; "
+                        "match the expected read error rate")
+    p.add_argument("--indel-rate", type=float, default=0.0,
+                   help="insertion+deletion noise (each, per base) for "
+                        "training reads; match long-read error profiles")
+    p.add_argument("--max-shift", type=int, default=0,
+                   help="offset training reads 0..N bases from their source "
+                        "window (shift-matched tuning for sparse indexes: "
+                        "use stride-1)")
+    p.add_argument("--resume", default=None, metavar="NPZ",
+                   help="start from a previously saved weights npz")
+    p.add_argument("--state", default=None, metavar="NPZ",
+                   help="full training-state checkpoint (params, Adam "
+                        "moments, rng); loaded if it exists, saved back "
+                        "after training: exact resume (the port's own "
+                        "layout)")
+    _add_device(p)
 
 
 def _refuse_unported(args, flags) -> None:
@@ -104,6 +137,7 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_pipeline(sub)
     _add_build(sub)
+    _add_finetune(sub)
     args = ap.parse_args(argv)
     try:
         device = resolve_device(None if args.device == "cuda" else args.device)
@@ -167,9 +201,26 @@ def main(argv=None) -> int:
             index_type=args.index_type,
             build_cfg=cfg,
             device=device,
+            weights=args.weights,
         )
         print(f"[BUILD INDEX] saved {config['n_vects']} vectors to "
               f"{args.index_prefix}")
+        return 0
+
+    if args.cmd == "finetune":
+        from deepreadmapper_tpu_torch.models.encoder import load_params
+        from deepreadmapper_tpu_torch.pipeline.finetune import finetune, save_params_npz
+
+        params, losses = finetune(
+            args.ref_file, args.ref_len, steps=args.steps, batch=args.batch,
+            lr=args.lr, seed=args.seed, sub_rate=args.sub_rate,
+            max_shift=args.max_shift, indel_rate=args.indel_rate,
+            params=load_params(args.resume) if args.resume else None,
+            state_path=args.state, device=device,
+        )
+        save_params_npz(params, args.output)
+        print(f"[FINETUNE] {args.steps} steps, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, saved {args.output}")
         return 0
     return 1
 

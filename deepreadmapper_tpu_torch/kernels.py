@@ -129,6 +129,9 @@ class CudaKernel:
 
 # gru_fwd(x, w, bzr, r, rbh, hs, h_last, t_steps, batch, din, reverse, bf16, stream)
 GRU_FWD = CudaKernel("gru_fwd", [_P] * 7 + [_I] * 5 + [_P])
+# gru_bwd(h_prev, z, r, n, gnb, ct, rT, dgx, dgh, t_steps, batch, reverse,
+#         seqs_per_thread, stream)
+GRU_BWD = CudaKernel("gru_bwd", [_P] * 9 + [_I] * 4 + [_P])
 # int8_winmin(q8, r8, vals, args, qp, np, w, ntotal, ratio2, stream)
 INT8_WINMIN = CudaKernel("int8_winmin", [_P] * 4 + [_I] * 4 + [_F, _P])
 # sw_score(a, alen, b, blen, out, np, lr, lc, stream)
@@ -154,7 +157,7 @@ IVF_CHUNK_PQ_FOLD = CudaKernel("ivf_chunk_pq_fold",
                                [_P] * 12 + [_I] * 3 + [_F, _I, _I, _P], "ivf_chunk")
 
 ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, PQ_WINMIN, IVF_CHUNK_INT8,
-       IVF_CHUNK_INT8_FOLD, IVF_CHUNK_PQ, IVF_CHUNK_PQ_FOLD)
+       IVF_CHUNK_INT8_FOLD, IVF_CHUNK_PQ, IVF_CHUNK_PQ_FOLD, GRU_BWD)
 
 
 def reset_counts() -> None:

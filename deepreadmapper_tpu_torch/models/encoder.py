@@ -10,7 +10,15 @@ GRU, gate order z, r, n, linear_before_reset):
 
 tokens [B, 123] -> embedding gather (time-major) -> layer 1 fwd/bwd over all
 steps -> layer 2 fwd/bwd final hidden -> [B, 128] fp32.  The four GRU calls
-go through ``models.gru`` (the CUDA kernel on a GPU).
+go through ``models.gru`` (the CUDA kernels on a GPU).
+
+:func:`encode_tokens_impl` is the differentiable body, over a params dict of
+tensors (``{'embedding', 'layers': [{'w', 'r', 'bzr', 'rbh'}, ...]}``, the
+layout of :func:`load_params`).  Training owns such a dict
+(:func:`torch_params`): it mirrors the JAX package's EncoderParams pytree
+leaf for leaf, so the optimizer, the train-state file and the tests walk one
+structure in both packages.  :class:`Encoder` is the serving form: its
+weights are buffers and ``encode_tokens`` runs under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -83,6 +91,44 @@ def params_from_jax(params) -> dict:
     return {"embedding": np.asarray(emb, np.float32), "layers": out_layers}
 
 
+def torch_params(params: dict, device=None, requires_grad: bool = False) -> dict:
+    """A params dict of numpy arrays (or tensors) -> fp32 tensors on device,
+    each a leaf that requires grad when asked."""
+    def leaf(a):
+        t = a.detach() if torch.is_tensor(a) else torch.from_numpy(np.asarray(a, np.float32))
+        return t.to(device, torch.float32).clone().requires_grad_(requires_grad)
+
+    return {"embedding": leaf(params["embedding"]),
+            "layers": [{k: leaf(lp[k]) for k in _LAYER_KEYS} for lp in params["layers"]]}
+
+
+def numpy_params(params: dict) -> dict:
+    """A params dict of tensors -> fp32 numpy arrays on the host."""
+    def arr(a):
+        return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a, np.float32)
+
+    return {"embedding": arr(params["embedding"]),
+            "layers": [{k: arr(lp[k]) for k in _LAYER_KEYS} for lp in params["layers"]]}
+
+
+def encode_tokens_impl(params: dict, tokens: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Differentiable encode: tokens [B, T] -> embeddings [B, 128] fp32, on
+    the params' device; counterpart of encoder.encode_tokens_impl."""
+    # Gather through the transposed tokens: x lands time-major [T, B, 64]
+    # with no activation transpose.
+    x = params["embedding"].to(dtype)[tokens.long().T]
+    w, r, bzr, rbh = (params["layers"][0][k].to(dtype) for k in _LAYER_KEYS)
+    hf = gru_proj_seq(x, w[0], bzr[0], r[0], rbh[0], False)
+    hb = gru_proj_seq(x, w[1], bzr[1], r[1], rbh[1], True)
+    out1 = torch.cat([hf, hb], dim=-1)  # [T, B, 128]
+    del x, hf, hb
+    w, r, bzr, rbh = (params["layers"][1][k].to(dtype) for k in _LAYER_KEYS)
+    hf_t = gru_proj_last(out1, w[0], bzr[0], r[0], rbh[0], False)
+    hb_t = gru_proj_last(out1, w[1], bzr[1], r[1], rbh[1], True)
+    return torch.cat([hf_t, hb_t], dim=-1).to(torch.float32)
+
+
 class Encoder(nn.Module):
     """tokens [B, T] or wire rows [B, 48] -> embeddings [B, 128] fp32."""
 
@@ -94,24 +140,16 @@ class Encoder(nn.Module):
             for k in _LAYER_KEYS:
                 self.register_buffer(f"l{li}_{k}", torch.tensor(lp[k]))
 
-    def _layer(self, li: int, dtype: torch.dtype) -> list[torch.Tensor]:
-        return [getattr(self, f"l{li}_{k}").to(dtype) for k in _LAYER_KEYS]
+    def params(self) -> dict:
+        """The buffers as a params dict (no copies)."""
+        return {"embedding": self.embedding,
+                "layers": [{k: getattr(self, f"l{li}_{k}") for k in _LAYER_KEYS}
+                           for li in range(2)]}
 
     @torch.no_grad()
     def encode_tokens(self, tokens: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        # Gather through the transposed tokens: x lands time-major [T, B, 64]
-        # with no activation transpose.
-        x = self.embedding.to(dtype)[tokens.long().T]
-        w, r, bzr, rbh = self._layer(0, dtype)
-        hf = gru_proj_seq(x, w[0], bzr[0], r[0], rbh[0], False)
-        hb = gru_proj_seq(x, w[1], bzr[1], r[1], rbh[1], True)
-        out1 = torch.cat([hf, hb], dim=-1)  # [T, B, 128]
-        del x, hf, hb
-        w, r, bzr, rbh = self._layer(1, dtype)
-        hf_t = gru_proj_last(out1, w[0], bzr[0], r[0], rbh[0], False)
-        hb_t = gru_proj_last(out1, w[1], bzr[1], r[1], rbh[1], True)
-        return torch.cat([hf_t, hb_t], dim=-1).to(torch.float32)
+        return encode_tokens_impl(self.params(), tokens, dtype)
 
     def encode_packed(self, wire: torch.Tensor) -> torch.Tensor:
         """48-byte wire rows -> fp32 embeddings; tokenization runs on wire's

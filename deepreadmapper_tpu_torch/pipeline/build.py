@@ -10,6 +10,7 @@ either package loads an index the other built.
 from __future__ import annotations
 
 import os
+import shutil
 import time
 
 import numpy as np
@@ -32,7 +33,7 @@ from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex, quantize
 from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
 from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
-from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer
+from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer, load_params
 from deepreadmapper_tpu_torch.ops import pq as pq_ops
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 
@@ -40,6 +41,29 @@ PORTED_ENGINES = ("INT8FLAT", "FLAT", "PQFLAT", "IVFINT8", "IVFPQ")
 _PQ_ENGINES = ("PQFLAT", "IVFPQ")
 _INT8_ENGINES = ("INT8FLAT", "IVFINT8")
 INT8_SCALE = 1.0 / 127.0  # encoder outputs are tanh-bounded in [-1, 1]
+
+
+def _resolve_weights(weights: str | None, vectorizer: Vectorizer | None,
+                     device: torch.device) -> Vectorizer:
+    """Resolve the (weights=, vectorizer=) pair of a build; counterpart of
+    build._resolve_weights.  Both are allowed only when they agree EXACTLY
+    (a mismatched pair would embed windows with one encoder while recording
+    another for query time; near-identical fine-tunes are still different
+    encoders)."""
+    if weights is None:
+        return vectorizer or Vectorizer(device=device)
+    tuned = load_params(weights)
+    if vectorizer is None:
+        return Vectorizer(tuned, device=device)
+    have = vectorizer.encoder.params()
+    pairs = [(have["embedding"], tuned["embedding"])] + [
+        (hl[k], tl[k]) for hl, tl in zip(have["layers"], tuned["layers"]) for k in hl]
+    if not all(np.array_equal(a.cpu().numpy(), b) for a, b in pairs):
+        raise ValueError(
+            "vectorizer= params do not match weights= — pass one, "
+            "or load the vectorizer from the same npz"
+        )
+    return vectorizer
 
 
 def window_wire(rec: np.ndarray, ref_len: int, stride: int, first: int,
@@ -169,11 +193,17 @@ def build_index(
     build_cfg: BuildConfig | None = None,
     device: torch.device | str | None = None,
     timings: dict | None = None,
+    weights: str | None = None,
+    vectorizer: Vectorizer | None = None,
 ) -> dict:
     """Build + persist an index directory; returns the saved config.
     device defaults to the CUDA device (raises without one).  timings, when
     a dict, gets the seconds of each build phase (embed, the IVF engines'
-    kmeans / assign / split_pack, save)."""
+    kmeans / assign / split_pack, save).  weights: a fine-tuned encoder npz
+    (``finetune`` output); the windows are embedded with it and it is
+    copied to ``<prefix>/encoder.npz``, which the pipeline then loads for
+    the queries.  vectorizer: an encoder already loaded (it must equal
+    weights= when both are given)."""
     if index_type not in PORTED_ENGINES:
         raise not_ported(f"index type {index_type}")
     device = resolve_device(device)
@@ -182,7 +212,7 @@ def build_index(
     if cfg.opq and index_type not in _PQ_ENGINES:
         print(f"[BUILD INDEX] WARNING: --opq only applies to PQFLAT/IVFPQ; "
               f"ignored for {index_type}")
-    vectorizer = Vectorizer(device=device)
+    vectorizer = _resolve_weights(weights, vectorizer, device)
     ext = true_ext(ref_file)
     if ext in FASTA_EXTS:
         nv = estimate_window_count(ref_file, ref_len, stride)  # both strands
@@ -263,8 +293,12 @@ def build_index(
         "nbits": cfg.nbits,
         "index_file": os.path.join(index_prefix, basename + ".index"),
     }
+    if weights is not None:
+        config["weights"] = "encoder.npz"
     t0 = time.perf_counter()
     os.makedirs(index_prefix, exist_ok=True)
+    if weights is not None:
+        shutil.copyfile(weights, os.path.join(index_prefix, "encoder.npz"))
     engine.save(index_prefix)
     save_config(config, index_prefix)  # last: config.txt marks a complete build
     t["save"] = time.perf_counter() - t0

@@ -354,3 +354,49 @@ def test_ivf_search_on_cuda_matches_cpu(cuda, index_type, monkeypatch):
         gi, gd = gpu_idx.search(q, 10, ef=4)
         np.testing.assert_array_equal(gi, ci)
         np.testing.assert_array_equal(gd, cd)
+
+
+@pytest.mark.parametrize("b", [512, 1001])  # the training batch, and a ragged one
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_bwd_kernel_matches_plain(cuda, b, reverse):
+    """The cotangent recurrence (#9) against its plain version: max abs
+    error within 1e-5 of the largest value (fp32, the 192-deep product
+    summed in another order)."""
+    rng = np.random.default_rng(11)
+    shape = (123, b, gru.H)
+    arrs = [rng.uniform(-1, 1, shape), rng.uniform(0, 1, shape), rng.uniform(0, 1, shape),
+            rng.uniform(-1, 1, shape), rng.standard_normal(shape), rng.standard_normal(shape),
+            rng.standard_normal((gru.G, gru.H)) * 0.2]
+    ins = [torch.tensor(a, dtype=torch.float32).to(cuda) for a in arrs]
+    before = kernels.GRU_BWD.launches
+    got = gru.gru_bwd(*ins, reverse)
+    assert kernels.GRU_BWD.launches == before + 1
+    want = gru.gru_bwd_reference(*ins, reverse)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (123, b, gru.G)
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-5
+
+
+def test_train_step_gradients_on_cuda_match_cpu(cuda, data_dir):
+    """One training step's gradients on the card (kernels #1 and #9) against
+    the same step on the CPU (plain versions): each tensor within 1e-4 of
+    its largest value (the embedding gradient is an atomic scatter-add on
+    the card)."""
+    from deepreadmapper_tpu_torch.io.fasta import extract_fasta_sequence
+    from deepreadmapper_tpu_torch.models import encoder as enc
+    from deepreadmapper_tpu_torch.parallel import train
+    from deepreadmapper_tpu_torch.pipeline.finetune import sample_pairs
+
+    genome = extract_fasta_sequence(str(data_dir / "ecoli_150.fna"))
+    rt, wt = sample_pairs(genome, 150, 64, np.random.default_rng(0))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = enc.torch_params(enc.load_params(), dev, requires_grad=True)
+        before = kernels.GRU_BWD.launches
+        train.loss_fn(params, torch.from_numpy(rt).to(dev),
+                      torch.from_numpy(wt).to(dev)).backward()
+        assert kernels.GRU_BWD.launches == before + (8 if dev.type == "cuda" else 0)
+        grads[dev.type] = [p.grad.cpu() for p in train.leaves(params)]
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert float((g - c).abs().max() / c.abs().max()) <= 1e-4

@@ -1,5 +1,6 @@
-"""Port parity: the GRU plain version and the full encoder against the JAX
-package (which resolves gru_proj_* to its lax.scan reference on the CPU).
+"""Port parity: the GRU plain version, its gradient and the full encoder
+against the JAX package (which resolves gru_proj_* to its lax.scan
+reference on the CPU).
 
 Tolerances: fp32 atol 1e-5 (op order differs, both fp32); bf16 per-step
 outputs within one bf16 ulp of values below 1 (2^-8 = 3.9e-3, taken as
@@ -7,6 +8,7 @@ outputs within one bf16 ulp of values below 1 (2^-8 = 3.9e-3, taken as
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -67,6 +69,11 @@ def test_gru_rejects_bad_shapes():
         gru.gru_proj_seq(x, w[:32], bzr, r, rbh, False)
     with pytest.raises(ValueError):
         gru.gru_proj_last(x[0], w, bzr, r, rbh, False)
+    gates = [torch.from_numpy(a) for a in _bwd_case(3, 4)]
+    with pytest.raises(ValueError):  # rT must be [192, 64]
+        gru.gru_bwd(*gates[:6], gates[6].T)
+    with pytest.raises(TypeError):
+        gru.gru_bwd(*gates[:5], gates[5].double(), gates[6])
 
 
 def _fixture_tokens(data_dir, n):
@@ -170,3 +177,110 @@ def test_vectorizer_batching_consistency(data_dir):
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
     empty = tenc.Vectorizer(params, device="cpu").vectorize_tokens(tokens[:0])
     assert empty.shape == (0, 128)
+
+
+# ------------------------------------------------------------ the backward
+
+
+def _bwd_case(t_steps, b, seed=5):
+    """Gate-recurrence inputs in their ranges: h_prev, n in (-1, 1), z, r in
+    (0, 1), gnb and ct normal; rT [192, 64]."""
+    rng = np.random.default_rng(seed)
+    hp, n = (rng.uniform(-1, 1, (t_steps, b, gru.H)) for _ in range(2))
+    z, r = (rng.uniform(0, 1, (t_steps, b, gru.H)) for _ in range(2))
+    gnb, ct = (rng.standard_normal((t_steps, b, gru.H)) for _ in range(2))
+    rT = rng.standard_normal((gru.G, gru.H)) * 0.2
+    return [a.astype(np.float32) for a in (hp, z, r, n, gnb, ct, rT)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_bwd_reference_matches_pallas_interpret(reverse):
+    """The plain cotangent recurrence against the JAX Pallas kernel in
+    interpret mode, T = 11, B = 20 with a batch tile of 16 (the pad path).
+    The JAX kernel only walks t = T-1 .. 0, so the reverse walk is held to it
+    on time-flipped inputs.  Tolerance rtol/atol 1e-5 (fp32, the 192-deep
+    product summed in another order)."""
+    hp, z, r, n, gnb, ct, rT = _bwd_case(11, 20)
+    flip = (lambda a: a[::-1].copy()) if reverse else (lambda a: a)
+    seq = [flip(a) for a in (hp, z, r, n, gnb, ct)]
+    jdgx, jdgh = gp._pallas_bwd_scan(jnp.asarray(rT), *map(jnp.asarray, seq),
+                                     bt=16, interpret=True)
+    before = kernels.GRU_BWD.launches
+    dgx, dgh = gru.gru_bwd(*(torch.from_numpy(a) for a in (hp, z, r, n, gnb, ct, rT)),
+                           reverse=reverse)
+    assert kernels.GRU_BWD.launches == before  # CPU tensors: plain version
+    assert dgx.shape == dgh.shape == (11, 20, gru.G) and dgx.dtype == torch.float32
+    for got, want in ((dgx, jdgx), (dgh, jdgh)):
+        np.testing.assert_allclose(got.numpy(), flip(np.asarray(want)), rtol=1e-5, atol=1e-5)
+
+
+def _grad_inputs(arrs, dtype):
+    return [torch.from_numpy(a).to(dtype).requires_grad_(True) for a in arrs]
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+# bf16 inputs: both packages run the backward in fp32 from the same bf16
+# values and round each gradient to bf16 at the end, so a gradient may sit
+# one bf16 step (2^-8 of its value) from the other's where the fp32 sums
+# differ in the last bits; measured at most 1.9e-3 of the largest gradient
+# here, bound 8e-3.  fp32: measured at most 8.7e-7, bound 1e-5.
+_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_grads_match_jax_vjp(last, reverse, dtype):
+    """Grads of x, w, bzr, r, rbh through the autograd Functions against
+    jax.vjp of the JAX custom_vjp (its manual backward, lax.scan branch),
+    each as max abs error over the JAX gradient's max abs value."""
+    din = 128 if last else 64  # the encoder's layer 2 and layer 1 inputs
+    arrs = _gru_case(din, seed=7)
+    jfn = gp.gru_proj_last if last else gp.gru_proj_seq
+    jin = [jnp.asarray(a, dtype) for a in arrs]
+    out, vjp = jax.vjp(lambda *a: jfn(*a, reverse), *jin)
+    ct = np.random.default_rng(8).standard_normal(out.shape).astype(np.float32)
+    want = vjp(jnp.asarray(ct, out.dtype))
+    tdt = getattr(torch, dtype)
+    tin = _grad_inputs(arrs, tdt)
+    tfn = gru.gru_proj_last if last else gru.gru_proj_seq
+    got = tfn(*tin, reverse)
+    assert got.grad_fn is not None
+    got.backward(torch.from_numpy(ct).to(got.dtype))
+    for name, t, w in zip(("x", "w", "bzr", "r", "rbh"), tin, want):
+        assert t.grad.dtype == tdt and tuple(t.grad.shape) == tuple(w.shape)
+        err = _rel_err(t.grad.float().numpy(), np.asarray(w.astype(jnp.float32)))
+        assert err <= _GRAD_RTOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_grads_match_autograd_of_plain_loop(last, reverse):
+    """The manual backward against torch autograd through gru_reference's
+    Python loop, fp32: rel 1e-5 (the same math, summed in another order)."""
+    din = 128 if last else 64
+    arrs = _gru_case(din, seed=9)
+    ct = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (11, gru.H) if last else (17, 11, gru.H)).astype(np.float32))
+    tin = _grad_inputs(arrs, torch.float32)
+    (gru.gru_proj_last if last else gru.gru_proj_seq)(*tin, reverse).backward(ct)
+    ref = _grad_inputs(arrs, torch.float32)
+    gru.gru_reference(*ref, reverse, last).backward(ct)
+    for t, w in zip(tin, ref):
+        assert _rel_err(t.grad.numpy(), w.grad.numpy()) <= 1e-5
+
+
+def test_gru_serving_path_saves_nothing():
+    """Under no_grad, or with no input that requires grad, the entries call
+    the forward directly: no autograd node, nothing saved."""
+    arrs = _gru_case(64)
+    tin = _grad_inputs(arrs, torch.float32)
+    with torch.no_grad():
+        assert gru.gru_proj_seq(*tin, False).grad_fn is None
+        assert gru.gru_proj_last(*tin, True).grad_fn is None
+    plain = [torch.from_numpy(a) for a in arrs]
+    assert gru.gru_proj_seq(*plain, False).grad_fn is None

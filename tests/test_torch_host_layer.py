@@ -4,6 +4,8 @@ ids, FASTA windows and reverse complements, FASTQ parse, SAM text, config.txt
 round trip and estimates."""
 
 import os
+import shutil
+import time
 
 import numpy as np
 import pytest
@@ -64,10 +66,39 @@ def test_tokenizer_copy_matches(data_dir):
     assert ttok.tokenize_reference(edge[3]) == jtok.tokenize_reference(edge[3])
 
 
+def _jax_native_available(settle_s: float = 2.0, limit_s: float = 300.0) -> bool:
+    """jnative.available(), robust to another test process that is still
+    compiling the reference library.  The JAX package's build writes g++'s
+    output straight onto its final path, and each test process may start
+    one: a process that loads the file half-written caches the failure.  So
+    when the library reports unavailable though g++ and its sources exist,
+    wait until the file has stopped changing, clear the module's cache
+    (``_lib``, ``_tried``) and load again."""
+    if jnative.available():
+        return True
+    if shutil.which("g++") is None or not os.path.exists(jnative._SRC):
+        return False
+    deadline = time.monotonic() + limit_s
+    last = None
+    while time.monotonic() < deadline:
+        try:
+            st = os.stat(jnative._SO)
+            now = (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            now = None
+        if now is not None and now == last:
+            break
+        last = now
+        time.sleep(settle_s)
+    jnative._lib = None
+    jnative._tried = False
+    return jnative.available()
+
+
 def test_native_copy_matches(data_dir):
     """The port's native loader builds its own library (under its _build/)
     from the same C++ sources; both answer alike, or both are missing."""
-    assert tnative.available() == jnative.available()
+    assert tnative.available() == _jax_native_available()
     if not tnative.available():
         pytest.skip("no C++ compiler for the native helpers")
     assert os.path.dirname(tnative._so_path()).endswith(

@@ -98,8 +98,9 @@ def test_cli_refuses_unported_features(data_dir, tmp_path):
 
 def test_port_cli_never_imports_jax(data_dir, tmp_path):
     """build-index -> pipeline through the port's CLI in a fresh process
-    (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8), then assert that
-    neither jax nor any module of the JAX package was imported."""
+    (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8, and finetune ->
+    build-index --weights -> pipeline), then assert that neither jax nor any
+    module of the JAX package was imported."""
     code = (
         "import sys\n"
         "from deepreadmapper_tpu_torch import cli\n"
@@ -117,6 +118,12 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
         " 'IVFINT8', *dev]) == 0\n"
         "assert cli.main(['pipeline', d + '/ivf', fq, fna, '32', '16', '16',"
         " d + '/ivf_out', *dev]) == 0\n"
+        "assert cli.main(['finetune', fna, '150', '-o', d + '/tuned.npz', '--steps', '1',"
+        " '--batch', '4', *dev]) == 0\n"
+        "assert cli.main(['build-index', fna, d + '/tidx', '150', '--weights',"
+        " d + '/tuned.npz', *dev]) == 0\n"
+        "assert cli.main(['pipeline', d + '/tidx', fq, fna, '128', '8', '5',"
+        " d + '/tuned_out', '--no-sam', *dev]) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = sorted(m for m in sys.modules if m == 'deepreadmapper_tpu'"
         " or m.startswith('deepreadmapper_tpu.'))\n"
@@ -131,21 +138,25 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     assert os.path.exists(tmp_path / "out" / "indices.npy")
     assert os.path.exists(tmp_path / "pq_out" / "results.sam")
     assert os.path.exists(tmp_path / "ivf_out" / "indices.npy")
+    assert os.path.exists(tmp_path / "tidx" / "encoder.npz")
+    assert os.path.exists(tmp_path / "tuned_out" / "indices.npy")
 
 
-@pytest.mark.parametrize("cmd", ["build-index", "pipeline"])
+@pytest.mark.parametrize("cmd", ["build-index", "pipeline", "finetune"])
 def test_cli_without_a_card_fails_and_writes_nothing(data_dir, tmp_path, cmd):
     """Without --device cpu and with no CUDA device visible, each command
-    exits non-zero with the device error and writes no output."""
+    exits with status 2 and the device error, and writes no output."""
     fna = str(data_dir / "ecoli_150.fna")
     fq = str(data_dir / "test_data.fastq")
     out = tmp_path / "out"
-    argv = (["build-index", fna, str(out), "150"] if cmd == "build-index" else
-            ["pipeline", str(tmp_path / "idx"), fq, fna, "128", "128", "5", str(out)])
+    argv = {"build-index": ["build-index", fna, str(out), "150"],
+            "pipeline": ["pipeline", str(tmp_path / "idx"), fq, fna, "128", "128", "5",
+                         str(out)],
+            "finetune": ["finetune", fna, "150", "-o", str(out)]}[cmd]
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-m", "deepreadmapper_tpu_torch", *argv],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
+    assert proc.returncode == 2
     assert "no CUDA device is visible" in proc.stderr
     assert "--device cpu" in proc.stderr
     assert not out.exists()
