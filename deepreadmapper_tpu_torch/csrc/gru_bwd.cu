@@ -23,106 +23,90 @@
 // next: lam of step t feeds step t-1, so every step pays the latency of its
 // loads, a 192-deep product and two block barriers.
 //
-// Design: as in gru_fwd.cu, a block owns BS = GROUPS x S sequences for all T
-// steps (the TPU kernel carries lam in VMEM from one grid step to the next;
-// blocks here carry nothing, so the time loop lives inside the block).
-// Thread (j, g) owns hidden unit j of S sequences and keeps their lam in
-// registers.  rT (48 KB fp32) sits in shared memory for the whole kernel;
-// each step a thread publishes its three dgh_t values per sequence to shared
-// memory, and after a barrier every thread reads the sequence's whole dgh_t
-// row (float4 broadcasts) against column j of rT (consecutive j, no bank
-// conflicts) in three independent 64-deep sums.  The next step's six inputs
-// are loaded before this step's product, so their latency overlaps it.  S is
-// 1 at small batches, so that B = 512 gives 256 blocks for 132 SMs, and 4 at
-// large ones (fewer rT copies per sequence).  Rows past the batch read zeros
-// and are never stored.
+// Design: as in gru_fwd.cu, a block owns GROUPS sequences for all T steps
+// (the TPU kernel carries lam in VMEM from one grid step to the next; blocks
+// here carry nothing, so the time loop lives inside the block).  Thread
+// (j, g) owns hidden unit j of sequence g and keeps its lam in a register.
+// rT (48 KB fp32) sits in shared memory for the whole kernel; each step a
+// thread publishes its three dgh_t values to shared memory, and after a
+// barrier every thread reads the sequence's whole dgh_t row (float4
+// broadcasts) against column j of rT (consecutive j, no bank conflicts) in
+// three independent 64-deep sums.  The next step's six inputs are loaded
+// before this step's product, so their latency overlaps it.  With two
+// sequences a block, B = 512 gives 256 blocks for 132 SMs.  Rows past the
+// batch read zeros and are never stored.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int H = 64;
 constexpr int G = 3 * H;
-constexpr int GROUPS = 2;                // thread groups of H threads
+constexpr int GROUPS = 2;                // sequences a block, H threads each
 constexpr int THREADS = GROUPS * H;
 
-template <int S>
 __global__ void __launch_bounds__(THREADS)
 gru_bwd_kernel(const float* __restrict__ hp, const float* __restrict__ zg,
                const float* __restrict__ rg, const float* __restrict__ ng,
                const float* __restrict__ gnb, const float* __restrict__ ct,
                const float* __restrict__ rT, float* __restrict__ dgx,
                float* __restrict__ dgh, int t_steps, int batch, int reverse) {
-  constexpr int BS = GROUPS * S;
   extern __shared__ __align__(16) float smem[];
   float* rts = smem;          // [G][H]
-  float* dghs = rts + G * H;  // [BS][G]
+  float* dghs = rts + G * H;  // [GROUPS][G]
 
   const int tid = threadIdx.x;
   const int j = tid % H;
   const int g = tid / H;
-  const int b0 = blockIdx.x * BS + g * S;  // this thread's first sequence
+  const int b = blockIdx.x * GROUPS + g;  // this thread's sequence
 
   for (int i = tid; i < G * H; i += THREADS) rts[i] = rT[i];
 
-  // in[0..5][s]: hp, z, r, n, gnb, ct of sequence b0 + s at one step
+  // nxt[0..5]: hp, z, r, n, gnb, ct of sequence b at one step
   const float* srcs[6] = {hp, zg, rg, ng, gnb, ct};
-  float nxt[6][S];
+  float nxt[6];
   auto load = [&](int t) {
+    const bool live = b < batch;
+    const size_t off = ((size_t)t * batch + b) * H + j;
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const bool live = b0 + s < batch;
-      const size_t off = ((size_t)t * batch + b0 + s) * H + j;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) nxt[a][s] = live ? srcs[a][off] : 0.0f;
-    }
+    for (int a = 0; a < 6; ++a) nxt[a] = live ? srcs[a][off] : 0.0f;
   };
 
-  float lam[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) lam[s] = 0.0f;
+  float lam = 0.0f;
   if (t_steps > 0) load(reverse ? 0 : t_steps - 1);
 
   for (int step = 0; step < t_steps; ++step) {
     const int t = reverse ? step : t_steps - 1 - step;
-    float in[6][S];
+    float in[6];
 #pragma unroll
-    for (int a = 0; a < 6; ++a)
-#pragma unroll
-      for (int s = 0; s < S; ++s) in[a][s] = nxt[a][s];
+    for (int a = 0; a < 6; ++a) in[a] = nxt[a];
     if (step + 1 < t_steps) load(reverse ? step + 1 : t_steps - 2 - step);
 
-    float dzz[S];  // d z, the direct path of lam
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float h0 = in[0][s], z = in[1][s], r = in[2][s], n = in[3][s];
-      const float d = lam[s] + in[5][s];
-      const float dz = d * (h0 - n);
-      const float dn = d * (1.0f - z);
-      const float dgn = dn * (1.0f - n * n);
-      const float dr = dgn * in[4][s];
-      const float dghn = dgn * r;
-      const float dgz = dz * z * (1.0f - z);
-      const float dgr = dr * r * (1.0f - r);
-      dzz[s] = d * z;
-      float* row = dghs + (g * S + s) * G;
-      row[j] = dgz;
-      row[H + j] = dgr;
-      row[2 * H + j] = dghn;
-      if (b0 + s < batch) {
-        const size_t o = ((size_t)t * batch + b0 + s) * G + j;
-        dgx[o] = dgz;
-        dgx[o + H] = dgr;
-        dgx[o + 2 * H] = dgn;
-        dgh[o] = dgz;
-        dgh[o + H] = dgr;
-        dgh[o + 2 * H] = dghn;
-      }
+    const float h0 = in[0], z = in[1], r = in[2], n = in[3];
+    const float d = lam + in[5];
+    const float dz = d * (h0 - n);
+    const float dn = d * (1.0f - z);
+    const float dgn = dn * (1.0f - n * n);
+    const float dr = dgn * in[4];
+    const float dghn = dgn * r;
+    const float dgz = dz * z * (1.0f - z);
+    const float dgr = dr * r * (1.0f - r);
+    const float dzz = d * z;  // the direct path of lam
+    float* row = dghs + g * G;
+    row[j] = dgz;
+    row[H + j] = dgr;
+    row[2 * H + j] = dghn;
+    if (b < batch) {
+      const size_t o = ((size_t)t * batch + b) * G + j;
+      dgx[o] = dgz;
+      dgx[o + H] = dgr;
+      dgx[o + 2 * H] = dgn;
+      dgh[o] = dgz;
+      dgh[o + H] = dgr;
+      dgh[o + 2 * H] = dghn;
     }
     __syncthreads();  // every dgh_t row of the block is in shared memory
 
-    float az[S], ar[S], an[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) az[s] = ar[s] = an[s] = 0.0f;
+    float az = 0.0f, ar = 0.0f, an = 0.0f;
 #pragma unroll 4
     for (int k = 0; k < H; k += 4) {
       float wz[4], wr[4], wn[4];
@@ -132,69 +116,49 @@ gru_bwd_kernel(const float* __restrict__ hp, const float* __restrict__ zg,
         wr[q] = rts[(H + k + q) * H + j];
         wn[q] = rts[(2 * H + k + q) * H + j];
       }
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float* row = dghs + (g * S + s) * G;
-        const float4 vz = *reinterpret_cast<const float4*>(row + k);
-        const float4 vr = *reinterpret_cast<const float4*>(row + H + k);
-        const float4 vn = *reinterpret_cast<const float4*>(row + 2 * H + k);
-        az[s] = fmaf(vz.x, wz[0], az[s]);
-        az[s] = fmaf(vz.y, wz[1], az[s]);
-        az[s] = fmaf(vz.z, wz[2], az[s]);
-        az[s] = fmaf(vz.w, wz[3], az[s]);
-        ar[s] = fmaf(vr.x, wr[0], ar[s]);
-        ar[s] = fmaf(vr.y, wr[1], ar[s]);
-        ar[s] = fmaf(vr.z, wr[2], ar[s]);
-        ar[s] = fmaf(vr.w, wr[3], ar[s]);
-        an[s] = fmaf(vn.x, wn[0], an[s]);
-        an[s] = fmaf(vn.y, wn[1], an[s]);
-        an[s] = fmaf(vn.z, wn[2], an[s]);
-        an[s] = fmaf(vn.w, wn[3], an[s]);
-      }
+      const float* row = dghs + g * G;
+      const float4 vz = *reinterpret_cast<const float4*>(row + k);
+      const float4 vr = *reinterpret_cast<const float4*>(row + H + k);
+      const float4 vn = *reinterpret_cast<const float4*>(row + 2 * H + k);
+      az = fmaf(vz.x, wz[0], az);
+      az = fmaf(vz.y, wz[1], az);
+      az = fmaf(vz.z, wz[2], az);
+      az = fmaf(vz.w, wz[3], az);
+      ar = fmaf(vr.x, wr[0], ar);
+      ar = fmaf(vr.y, wr[1], ar);
+      ar = fmaf(vr.z, wr[2], ar);
+      ar = fmaf(vr.w, wr[3], ar);
+      an = fmaf(vn.x, wn[0], an);
+      an = fmaf(vn.y, wn[1], an);
+      an = fmaf(vn.z, wn[2], an);
+      an = fmaf(vn.w, wn[3], an);
     }
-#pragma unroll
-    for (int s = 0; s < S; ++s) lam[s] = dzz[s] + (az[s] + ar[s] + an[s]);
+    lam = dzz + (az + ar + an);
     __syncthreads();  // every read of dghs for this step is done
   }
-}
-
-template <int S>
-cudaError_t launch(const void* const* in, const void* rT, void* dgx, void* dgh,
-                   int t_steps, int batch, int reverse, cudaStream_t stream) {
-  constexpr int BS = GROUPS * S;
-  const size_t smem = sizeof(float) * ((size_t)G * H + (size_t)BS * G);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((batch + BS - 1) / BS);
-  const float* const* f = reinterpret_cast<const float* const*>(in);
-  gru_bwd_kernel<S><<<grid, THREADS, smem, stream>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], static_cast<const float*>(rT),
-      static_cast<float*>(dgx), static_cast<float*>(dgh), t_steps, batch,
-      reverse);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // h_prev, z, r, n, gnb, ct [T, B, 64] fp32; rT [192, 64] fp32; dgx, dgh
 // [T, B, 192] fp32.  reverse = 1 for the backward of a reverse-direction
-// GRU (the walk runs t = 0 .. T-1).  seqs_per_thread is 1 or 4.
+// GRU (the walk runs t = 0 .. T-1).
 extern "C" int gru_bwd(const void* h_prev, const void* z, const void* r,
                        const void* n, const void* gnb, const void* ct,
                        const void* rT, void* dgx, void* dgh, int t_steps,
-                       int batch, int reverse, int seqs_per_thread,
-                       void* stream) {
-  const void* in[6] = {h_prev, z, r, n, gnb, ct};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (seqs_per_thread == 4)
-    err = launch<4>(in, rT, dgx, dgh, t_steps, batch, reverse, st);
-  else if (seqs_per_thread == 1)
-    err = launch<1>(in, rT, dgx, dgh, t_steps, batch, reverse, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+                       int batch, int reverse, void* stream) {
+  const size_t smem = sizeof(float) * ((size_t)G * H + (size_t)GROUPS * G);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((batch + GROUPS - 1) / GROUPS);
+  gru_bwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h_prev), static_cast<const float*>(z),
+      static_cast<const float*>(r), static_cast<const float*>(n),
+      static_cast<const float*>(gnb), static_cast<const float*>(ct),
+      static_cast<const float*>(rT), static_cast<float*>(dgx),
+      static_cast<float*>(dgh), t_steps, batch, reverse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* gru_bwd_error_string(int err) {

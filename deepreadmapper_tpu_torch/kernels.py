@@ -129,9 +129,8 @@ class CudaKernel:
 
 # gru_fwd(x, w, bzr, r, rbh, hs, h_last, t_steps, batch, din, reverse, bf16, stream)
 GRU_FWD = CudaKernel("gru_fwd", [_P] * 7 + [_I] * 5 + [_P])
-# gru_bwd(h_prev, z, r, n, gnb, ct, rT, dgx, dgh, t_steps, batch, reverse,
-#         seqs_per_thread, stream)
-GRU_BWD = CudaKernel("gru_bwd", [_P] * 9 + [_I] * 4 + [_P])
+# gru_bwd(h_prev, z, r, n, gnb, ct, rT, dgx, dgh, t_steps, batch, reverse, stream)
+GRU_BWD = CudaKernel("gru_bwd", [_P] * 9 + [_I] * 3 + [_P])
 # int8_winmin(q8, r8, vals, args, qp, np, w, ntotal, ratio2, stream)
 INT8_WINMIN = CudaKernel("int8_winmin", [_P] * 4 + [_I] * 4 + [_F, _P])
 # sw_score(a, alen, b, blen, out, np, lr, lc, stream)

@@ -91,6 +91,24 @@ def params_from_jax(params) -> dict:
     return {"embedding": np.asarray(emb, np.float32), "layers": out_layers}
 
 
+def named_leaves(params: dict) -> list[tuple[str, object]]:
+    """The params dict's leaves with their names, in the one fixed order:
+    the embedding, then each layer's w, r, bzr, rbh.  The optimizer's
+    parameter order, the train-state file and Encoder's buffers follow it."""
+    return [("embedding", params["embedding"])] + [
+        (f"l{li}_{k}", lp[k]) for li, lp in enumerate(params["layers"]) for k in _LAYER_KEYS
+    ]
+
+
+def params_from_named(named) -> dict:
+    """Inverse of :func:`named_leaves`: a mapping of leaf names -> a params
+    dict of the same values."""
+    layers = []
+    while f"l{len(layers)}_w" in named:
+        layers.append({k: named[f"l{len(layers)}_{k}"] for k in _LAYER_KEYS})
+    return {"embedding": named["embedding"], "layers": layers}
+
+
 def torch_params(params: dict, device=None, requires_grad: bool = False) -> dict:
     """A params dict of numpy arrays (or tensors) -> fp32 tensors on device,
     each a leaf that requires grad when asked."""
@@ -135,16 +153,12 @@ class Encoder(nn.Module):
     def __init__(self, params: dict | None = None):
         super().__init__()
         params = params if params is not None else load_params()
-        self.register_buffer("embedding", torch.tensor(params["embedding"]))
-        for li, lp in enumerate(params["layers"]):
-            for k in _LAYER_KEYS:
-                self.register_buffer(f"l{li}_{k}", torch.tensor(lp[k]))
+        for name, a in named_leaves(params):
+            self.register_buffer(name, torch.tensor(a))
 
     def params(self) -> dict:
         """The buffers as a params dict (no copies)."""
-        return {"embedding": self.embedding,
-                "layers": [{k: getattr(self, f"l{li}_{k}") for k in _LAYER_KEYS}
-                           for li in range(2)]}
+        return params_from_named(dict(self.named_buffers()))
 
     @torch.no_grad()
     def encode_tokens(self, tokens: torch.Tensor,

@@ -94,16 +94,11 @@ def _launch_bwd(ins, rT, reverse: bool):
     dgh = torch.empty_like(dgx)
     if b == 0 or t_steps == 0:
         return dgx, dgh
-    # four sequences per thread (8 per block, fewer copies of rT per
-    # sequence) once that still gives two blocks per SM, else one (B = 512:
-    # 256 blocks of 2)
-    sms = torch.cuda.get_device_properties(rT.device).multi_processor_count
-    spt = 4 if -(-b // 8) >= 2 * sms else 1
     with torch.cuda.device(rT.device):
         stream = torch.cuda.current_stream(rT.device).cuda_stream
         kernels.GRU_BWD.launch(
             *(a.data_ptr() for a in ins), rT.data_ptr(), dgx.data_ptr(),
-            dgh.data_ptr(), t_steps, b, int(reverse), spt, stream,
+            dgh.data_ptr(), t_steps, b, int(reverse), stream,
         )
     return dgx, dgh
 

@@ -17,14 +17,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from deepreadmapper_tpu_torch.models.encoder import encode_tokens_impl
+from deepreadmapper_tpu_torch.models.encoder import encode_tokens_impl, named_leaves
 
 
 def leaves(params: dict) -> list[torch.Tensor]:
-    """The params dict's tensors in a fixed order (embedding, then each
-    layer's w, r, bzr, rbh)."""
-    return [params["embedding"]] + [lp[k] for lp in params["layers"]
-                                    for k in ("w", "r", "bzr", "rbh")]
+    """The params dict's tensors in the order of ``encoder.named_leaves``."""
+    return [t for _, t in named_leaves(params)]
 
 
 def make_optimizer(params: dict, lr: float = 1e-4) -> torch.optim.Adam:

@@ -33,7 +33,7 @@ from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex, quantize
 from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
 from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
-from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer, load_params
+from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer, load_params, named_leaves
 from deepreadmapper_tpu_torch.ops import pq as pq_ops
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 
@@ -55,10 +55,8 @@ def _resolve_weights(weights: str | None, vectorizer: Vectorizer | None,
     tuned = load_params(weights)
     if vectorizer is None:
         return Vectorizer(tuned, device=device)
-    have = vectorizer.encoder.params()
-    pairs = [(have["embedding"], tuned["embedding"])] + [
-        (hl[k], tl[k]) for hl, tl in zip(have["layers"], tuned["layers"]) for k in hl]
-    if not all(np.array_equal(a.cpu().numpy(), b) for a, b in pairs):
+    pairs = zip(named_leaves(vectorizer.encoder.params()), named_leaves(tuned))
+    if not all(np.array_equal(a.cpu().numpy(), b) for (_, a), (_, b) in pairs):
         raise ValueError(
             "vectorizer= params do not match weights= — pass one, "
             "or load the vectorizer from the same npz"

@@ -21,7 +21,7 @@ from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch import tokenizer as tok
 from deepreadmapper_tpu_torch.io import fasta as fasta_io
 from deepreadmapper_tpu_torch.models import encoder as enc
-from deepreadmapper_tpu_torch.parallel.train import leaves, make_optimizer, train_step
+from deepreadmapper_tpu_torch.parallel.train import make_optimizer, train_step
 
 
 # Copied from deepreadmapper_tpu/pipeline/finetune.py (that module imports jax).
@@ -194,11 +194,6 @@ def finetune(
     return enc.numpy_params(tparams), losses
 
 
-def _leaf_names() -> list[str]:
-    return ["embedding"] + [f"l{li}_{k}" for li in range(2)
-                            for k in ("w", "r", "bzr", "rbh")]
-
-
 def save_train_state(path: str, params: dict, opt: torch.optim.Optimizer,
                      step: int, rng: np.random.Generator) -> None:
     """Full training-state checkpoint in one npz: each param leaf by name,
@@ -206,7 +201,7 @@ def save_train_state(path: str, params: dict, opt: torch.optim.Optimizer,
     the step counter and the numpy generator's state (JSON bytes)."""
     payload = {}
     adam_step = 0.0
-    for name, p in zip(_leaf_names(), leaves(params)):
+    for name, p in enc.named_leaves(params):
         payload[name] = p.detach().cpu().numpy()
         st = opt.state.get(p)
         if st:
@@ -229,13 +224,9 @@ def load_train_state(path: str, lr: float = 1e-4, device=None):
     """Inverse of save_train_state -> (params, optimizer, step, rng); the
     params are leaf tensors on device that require grad."""
     with np.load(path) as z:
-        names = _leaf_names()
         arrays = {k: z[k] for k in z.files}
-    params = enc.torch_params(
-        {"embedding": arrays["embedding"],
-         "layers": [{k: arrays[f"l{li}_{k}"] for k in ("w", "r", "bzr", "rbh")}
-                    for li in range(2)]},
-        device, requires_grad=True)
+    params = enc.torch_params(enc.params_from_named(arrays), device, requires_grad=True)
+    names = [name for name, _ in enc.named_leaves(params)]
     opt = make_optimizer(params, lr)
     if arrays["adam_step"] > 0:
         sd = opt.state_dict()

@@ -5,11 +5,14 @@ the CPU against the JAX package.
 
 Tolerances: the loss and one step's gradients are held tightly (rtol 1e-5
 on the loss, each gradient within 1e-5 of its largest value; measured 0 and
-at most 1.2e-6).  Weights after several Adam steps are held with an atol of
-steps x 2 x lr: Adam moves each weight by about lr per step whatever the
-size of its gradient, so a gradient near zero that the two packages round
-differently can move a weight the other way, by up to 2 lr per step
-(measured at most 1.6e-5 after 3 steps at lr 1e-4, against 6e-4).
+at most 1.2e-6).  After several Adam steps each weight's update is held
+against JAX's at an atol of 5e-6 (the updates reach 3e-4; measured at most
+6.3e-7 after 3 steps at lr 1e-4).  Adam moves each weight by about lr per
+step whatever the size of its gradient, so a gradient near zero that the two
+packages round differently can move a weight the other way, by up to 2 lr
+per step.  Only the weights whose first JAX gradient is non-zero but within
+1e-4 of its tensor's largest (4,349 of 612,736) are held at steps x 2 x lr
+instead (measured at most 1.6e-5 there).
 """
 
 import os
@@ -54,9 +57,8 @@ def _rel_err(got, want):
 
 
 def _jax_leaves(p):
-    """EncoderParams (or grads of it) -> the port's leaf order."""
-    return [p.embedding] + [getattr(lp, k) for lp in p.layers
-                            for k in ("w", "r", "bzr", "rbh")]
+    """EncoderParams (or grads of it) -> numpy arrays in the port's leaf order."""
+    return ttrain.leaves(tenc.params_from_jax(p))
 
 
 def test_loss_and_grad_match_jax(genome):
@@ -93,21 +95,32 @@ def test_sample_pairs_match_jax_bit_for_bit(genome, kw):
     assert np.any(tt[0] != tt[1])  # the noise reached the reads
 
 
-def test_finetune_matches_jax(data_dir):
+def test_finetune_matches_jax(data_dir, genome):
     """Three steps at batch 16 from the shipped weights with the same seed:
-    losses rtol 1e-4; weights atol 3 x 2 x lr = 6e-4 (module docstring)."""
+    losses rtol 1e-4; each weight's update against JAX's at atol 5e-6, or
+    3 x 2 x lr = 6e-4 where the first JAX gradient is near zero (module
+    docstring)."""
     fna = str(data_dir / "ecoli_150.fna")
-    jparams, jlosses = jft.finetune(fna, 150, steps=3, batch=16, lr=LR, seed=2)
-    tparams, tlosses = tft.finetune(fna, 150, steps=3, batch=16, lr=LR, seed=2,
+    steps = 3
+    jparams, jlosses = jft.finetune(fna, 150, steps=steps, batch=16, lr=LR, seed=2)
+    tparams, tlosses = tft.finetune(fna, 150, steps=steps, batch=16, lr=LR, seed=2,
                                     device="cpu")
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
-    want = tenc.params_from_jax(jparams)
+    # the first step's batch and JAX gradient, as finetune draws them
+    rt, wt = jft.sample_pairs(genome, 150, 16, np.random.default_rng(2))
+    jgrad = jax.grad(jtrain.loss_fn)(jenc.load_params(), rt, wt)
     start = tenc.load_params()
-    moved = 0.0
-    for got, ref, init in zip(ttrain.leaves(tparams), ttrain.leaves(want),
-                              ttrain.leaves(start)):
-        np.testing.assert_allclose(got, ref, rtol=0, atol=3 * 2 * LR)
+    moved, n_near, n_all = 0.0, 0, 0
+    for got, ref, init, g in zip(ttrain.leaves(tparams), _jax_leaves(jparams),
+                                 ttrain.leaves(start), _jax_leaves(jgrad)):
+        ag = np.abs(g)
+        near = (ag > 0) & (ag <= 1e-4 * ag.max())
+        diff = np.abs((got - init) - (ref - init))
+        assert diff[~near].max() <= 5e-6
+        assert not near.any() or diff[near].max() <= steps * 2 * LR
+        n_near, n_all = n_near + int(near.sum()), n_all + near.size
         moved = max(moved, float(np.abs(got - init).max()))
+    assert n_near <= 0.01 * n_all  # only a few weights get the loose bound
     assert moved > 2 * LR  # the steps did move the weights
 
 
