@@ -38,7 +38,8 @@ Phases (any failure raises and the exit code is not 0):
 Phase 3 also holds the four IVF chunk scans against their plain versions on
 a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan, and
 the GRU backward's cotangent recurrence at the training batch (512) and at
-8192.
+8192, and times the GRU forward per encoder batch (B = 8192) and per launch
+at the training batch.
 The last lines are one JSON object of kernel results (time, plain time,
 bound, library time, launches on the main path), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -79,6 +80,7 @@ IVF_KERNEL_ROWS = 1 << 21           # the IVF kernels' layout in phase 3 holds a
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12                # int8 tensor cores, dense
 FP32_OPS_S = 67e12                  # fp32 outside the tensor cores (an FMA is 2)
+TF32_OPS_S = 495e12                 # TF32 tensor cores, dense
 # 32-bit integer add / compare / min / max: 64 results per SM per clock at
 # compute capability 9.0 (CUDA C++ Programming Guide), 132 SMs, 1.98 GHz
 INT32_OPS_S = 132 * 64 * 1.98e9
@@ -149,13 +151,13 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
 
 
-def _gru_inputs(din: int, dtype, rng):
+def _gru_inputs(din: int, dtype, rng, b: int = GRU_B):
     import torch
 
     from deepreadmapper_tpu_torch.models.encoder import load_params
 
     layer = load_params()["layers"][0 if din == 64 else 1]
-    x = rng.uniform(-1.0, 1.0, (GRU_T, GRU_B, din)).astype(np.float32)
+    x = rng.uniform(-1.0, 1.0, (GRU_T, b, din)).astype(np.float32)
     dev = torch.device("cuda")
     p = [torch.from_numpy(layer[k][0]).to(dev, dtype) for k in ("w", "bzr", "r", "rbh")]
     return torch.from_numpy(x).to(dev, dtype), p
@@ -220,11 +222,23 @@ def check_gru(results: dict):
     # 2 directions x T steps x B rows x (input + recurrent products) x 3 gates
     ops = sum(2 * GRU_T * GRU_B * 2 * (din + 64) * 192 for din in (64, 128))
     nbytes = 4 * GRU_T * GRU_B * (64 + 128) + 4 * GRU_T * GRU_B * 64 * 2 + 4 * GRU_B * 64 * 2
+    # fp32 accuracy on the tensor cores takes three TF32 passes of each
+    # product (csrc/gru_fwd.cu); the fp32 bound outside them is kept for the log
+    bd = bound(nbytes, 3 * ops, TF32_OPS_S)
     log(f"[kernels] gru encoder batch (4 calls, B={GRU_B}, fp32): kernel "
         f"{t_kernel:.3f} ms | plain {t_plain_a:.3f} / {t_plain_b:.3f} ms | cuDNN "
-        f"torch.nn.GRU {t_lib:.3f} ms | {ops / 1e9:.1f} GFLOP")
+        f"torch.nn.GRU {t_lib:.3f} ms | {ops / 1e9:.1f} GFLOP | bound {bd['bound_ms']:.3f} ms "
+        f"(3 TF32 passes; fp32 outside the tensor cores "
+        f"{bound(nbytes, ops, FP32_OPS_S)['bound_ms']:.3f} ms)")
     results["gru_fwd"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain,
-                          **bound(nbytes, ops, FP32_OPS_S), "library_ms": t_lib}
+                          **bd, "library_ms": t_lib}
+    # one launch at the training batch, per layer, as fine-tuning calls them
+    for din, last in ((64, False), (128, True)):
+        x, p = _gru_inputs(din, torch.float32, rng, TRAIN_B)
+        fn = gru.gru_proj_last if last else gru.gru_proj_seq
+        log(f"[kernels] gru one launch at B={TRAIN_B} din={din} "
+            f"({'last' if last else 'seq'}, fp32): "
+            f"{cuda_time(lambda: fn(x, *p, False), 20):.3f} ms")
 
 
 def _bwd_inputs(b: int, reverse: bool, rng):

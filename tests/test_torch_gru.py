@@ -274,6 +274,92 @@ def test_gru_grads_match_autograd_of_plain_loop(last, reverse):
         assert _rel_err(t.grad.numpy(), w.grad.numpy()) <= 1e-5
 
 
+# ------------------------------------- the kernel's TF32 products, emulated
+
+
+def _tf32(v):
+    """fp32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as cvt.rna.tf32.f32 rounds."""
+    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(v):
+    """fp32 -> TF32 by dropping the 13 low bits, as mma.sync reads an fp32
+    register."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b as csrc/gru_fwd.cu forms it on the tensor cores: TF32 operands
+    (their products are exact in fp32), fp32 sums; three passes add the
+    products with each operand's remainder lo = v - hi, which the kernel
+    hands to mma.sync unrounded."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _gru_tf32(x, w, bzr, r, rbh, reverse, last_only, passes):
+    """gru_reference with every product through _tf32_matmul."""
+    t_steps, b, din = x.shape
+    gx = _tf32_matmul(x.reshape(-1, din), w, passes).reshape(t_steps, b, gru.G) + bzr
+    h = torch.zeros((b, gru.H))
+    hs = torch.empty((t_steps, b, gru.H))
+    for t in (range(t_steps - 1, -1, -1) if reverse else range(t_steps)):
+        gh = _tf32_matmul(h, r, passes)
+        z = torch.sigmoid(gx[t, :, :gru.H] + gh[:, :gru.H])
+        rg = torch.sigmoid(gx[t, :, gru.H:2 * gru.H] + gh[:, gru.H:2 * gru.H])
+        n = torch.tanh(gx[t, :, 2 * gru.H:] + rg * (gh[:, 2 * gru.H:] + rbh))
+        h = (1.0 - z) * n + z * h
+        hs[t] = h
+    return h if last_only else hs
+
+
+@pytest.mark.parametrize("weights", ["shipped", "random"])
+def test_gru_kernel_needs_three_tf32_passes(monkeypatch, weights):
+    """The precision of the kernel's step products, pinned on the CPU: the
+    two-layer encoder over seeded 150 bp reads (T = 123, B = 32) with every
+    product in three TF32 passes stays within 1e-5 of the fp32 plain
+    version on layer 1's outputs and on the embedding; with one TF32 pass it
+    is off by more than 1e-4, the tolerance the kernel is held to on the
+    card.  The shipped weights come from fp16 and are exact in TF32, so
+    random fp32 weights also exercise the weights' split.  Measured (layer 1,
+    embedding): shipped 1.1e-6, 6.7e-7 against 3.9e-4, 3.4e-4 for one pass;
+    random 3.2e-6, 4.7e-6 against 4.2e-3, 6.0e-3."""
+    rng = np.random.default_rng(12)
+    seqs = ["".join(rng.choice(list("ACGT"), 150)) for _ in range(32)]
+    tokens = torch.from_numpy(tok.tokenize_strings(seqs))
+    assert tokens.shape == (32, tenc.MAX_LEN)
+    params = tenc.torch_params(
+        tenc.load_params() if weights == "shipped"
+        else jax.tree_util.tree_map(np.array, tenc.params_from_jax(_random_params(3))), "cpu")
+    outs = {}
+    for passes in (None, 3, 1):  # None: the plain version, fp32 products
+        layer1 = []
+
+        def seq(*a, passes=passes, layer1=layer1):
+            hs = (gru.gru_proj_seq(*a) if passes is None
+                  else _gru_tf32(*a, last_only=False, passes=passes))
+            layer1.append(hs)
+            return hs
+
+        def last(*a, passes=passes):
+            return (gru.gru_proj_last(*a) if passes is None
+                    else _gru_tf32(*a, last_only=True, passes=passes))
+
+        with monkeypatch.context() as m:
+            m.setattr(tenc, "gru_proj_seq", seq)
+            m.setattr(tenc, "gru_proj_last", last)
+            emb = tenc.encode_tokens_impl(params, tokens)
+        outs[passes] = (torch.cat(layer1, -1), emb)
+    errs = {p: tuple((a - b).abs().max().item() for a, b in zip(outs[p], outs[None]))
+            for p in (3, 1)}
+    assert max(errs[3]) <= 1e-5, errs
+    assert min(errs[1]) > 1e-4, errs
+
+
 def test_gru_serving_path_saves_nothing():
     """Under no_grad, or with no input that requires grad, the entries call
     the forward directly: no autograd node, nothing saved."""
