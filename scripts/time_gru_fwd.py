@@ -8,16 +8,20 @@ step at din 128, as chip_smoke.py phase 3 times it), and one launch at the
 training batch B = 512 for each layer (gru_proj_seq at din 64,
 gru_proj_last at din 128).  Each rep is the CUDA-event mean over 10
 batches or 20 launches after a warm-up.  It also holds each of the four
-calls of the batch against the plain version (fp32, max abs error).  To
-compare two checkouts on one card, time them in one session in the order
-parent, change, change, parent:
+calls of the batch against the plain version (fp32, max abs error), and
+reads the max and mean abs error on the random fp32 weights and inputs of
+tests/test_torch_gpu_kernels.py's fp32 sums case (T = 123, B = 1001, din
+64 and 128, both walks, hs and h_last).  To compare two checkouts on one
+card, time them in one session in the order parent, change, change,
+parent:
 
     python scripts/time_gru_fwd.py [--root DIR] [--reps 5]
 
 Prints one JSON object: {"root", "card" (nvidia-smi name, power limit),
 "ptxas": [the register lines of the build], "max_abs_err": the largest over
-the batch's four calls, "ms": {"batch_8192": [rep, ...], "b512_din64": [...],
-"b512_din128": [...]}}.
+the batch's four calls, "abs_err_random": {"din64": {"max": x, "mean": x},
+"din128": {...}} over the test case's four calls, "ms": {"batch_8192":
+[rep, ...], "b512_din64": [...], "b512_din128": [...]}}.
 """
 
 from __future__ import annotations
@@ -60,6 +64,13 @@ def main() -> int:
     def inputs(b, din):
         return torch.from_numpy(rng.uniform(-1, 1, (T, b, din)).astype(np.float32)).cuda()
 
+    def random_args(din, b=1001, seed=0):  # the test's _gru_args, fp32
+        r = np.random.default_rng(seed)
+        arrs = [r.uniform(-1, 1, (T, b, din)), r.standard_normal((din, gru.G)) * 0.2,
+                r.standard_normal(gru.G) * 0.1, r.standard_normal((gru.H, gru.G)) * 0.2,
+                r.standard_normal(gru.H) * 0.1]
+        return [torch.tensor(a, dtype=torch.float32).cuda() for a in arrs]
+
     x1, x2 = inputs(8192, 64), inputs(8192, 128)
     y1, y2 = inputs(512, 64), inputs(512, 128)
 
@@ -82,6 +93,13 @@ def main() -> int:
         err = max(float(((gru.gru_proj_seq if seq else gru.gru_proj_last)(x, *params[i], rev)
                          - gru.gru_reference(x, *params[i], rev, not seq)).abs().max())
                   for x, i, seq, rev in calls)
+        err_random = {}
+        for din in (64, 128):
+            rargs = random_args(din)
+            d = torch.cat([((gru.gru_proj_last if last else gru.gru_proj_seq)(*rargs, rev)
+                            - gru.gru_reference(*rargs, rev, last)).abs().flatten()
+                           for rev in (False, True) for last in (False, True)])
+            err_random[f"din{din}"] = {"max": float(d.max()), "mean": float(d.mean())}
         for name, (fn, n) in cases.items():
             fn()
             reps = []
@@ -96,7 +114,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in (kernels.GRU_FWD.build_log or "").splitlines()
              if "Used" in ln or "spill" in ln]
     print(json.dumps({"root": args.root, "card": card, "ptxas": ptxas, "max_abs_err": err,
-                      "ms": out}))
+                      "abs_err_random": err_random, "ms": out}))
     return 0
 
 

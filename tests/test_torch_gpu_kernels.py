@@ -63,6 +63,24 @@ def test_gru_kernel_matches_plain(cuda, din, dtype, reverse, last, t_steps, b):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("din,limit", [(64, 1.3e-7), (128, 2.0e-7)])
+def test_gru_kernel_fp32_sums(cuda, din, limit):
+    """The kernel carries each gate's running sum in fp32 adds, flushing the
+    tensor-core partials every two k-slices.  Summed inside mma.sync's own
+    accumulator instead, the fp32 error after 123 steps still passes the
+    1e-4 above, and its largest value here comes close to the kernel's
+    (2.1e-6-4.9e-6 against 1.2e-6-1.8e-6), but its mean over the four calls'
+    outputs is twice the kernel's or more: 1.9e-7-2.4e-7 against 9.1e-8 at
+    din 64, 3.5e-7-4.3e-7 against 1.2e-7 at din 128 (H100;
+    scripts/time_gru_fwd.py reads both on these inputs).  The limit sits
+    between them."""
+    args = _gru_args(din, torch.float32, cuda)
+    err = torch.cat([(fn(*args, reverse)
+                      - gru.gru_reference(*args, reverse, fn is gru.gru_proj_last)).abs().flatten()
+                     for fn in (gru.gru_proj_seq, gru.gru_proj_last) for reverse in (False, True)])
+    assert err.mean().item() <= limit
+
+
 @pytest.mark.parametrize("w", [128, 512])
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
 @pytest.mark.parametrize("amp", [127, 2])  # amp 2: many exact ties
