@@ -283,8 +283,9 @@ def _bwd_inputs(b: int, reverse: bool, rng):
 
 def check_gru_bwd(results: dict):
     """Kernel #9 against its plain version at the training batch, at 8192
-    and at a ragged batch, both walks; CUDA-event times at 512 and 8192;
-    the whole two-layer GRU gradient beside cuDNN's."""
+    and at a ragged batch, both walks, on both outputs (dgx [T,B,192], dghn
+    [T,B,64]); CUDA-event times at 512 and 8192; the whole two-layer GRU
+    gradient beside cuDNN's."""
     import torch
 
     from deepreadmapper_tpu_torch.models import gru
@@ -312,13 +313,17 @@ def check_gru_bwd(results: dict):
         t_plain_a = cuda_time(lambda: gru.gru_bwd_reference(*ins, rT), 2)
         t_kernel = cuda_time(lambda: gru.gru_bwd(*ins, rT), 20)
         t_plain_b = cuda_time(lambda: gru.gru_bwd_reference(*ins, rT), 2)
-        # each sequence and step: 6 x 64 fp32 in, 2 x 192 fp32 out; 192 x 64 FMA
-        bd = bound(4.0 * GRU_T * b * (6 * 64 + 2 * 192), 2.0 * GRU_T * b * 192 * 64,
-                   FP32_OPS_S)
+        # each sequence and step: 6 x 64 fp32 in, dgx 192 + dghn 64 fp32 out
+        # (2,560 B); 192 x 64 FMA.  The earlier outputs, dgx and dgh [.., 192],
+        # made it 3,072 B: logged beside it so the history reads on
+        ops = 2.0 * GRU_T * b * 192 * 64
+        bd = bound(4.0 * GRU_T * b * (6 * 64 + 192 + 64), ops, FP32_OPS_S)
+        bd_old = bound(4.0 * GRU_T * b * (6 * 64 + 2 * 192), ops, FP32_OPS_S)
         times[b] = (t_kernel, (t_plain_a + t_plain_b) / 2, bd)
         log(f"[kernels] gru_bwd T={GRU_T} B={b}: kernel {t_kernel:.3f} ms | plain "
             f"{t_plain_a:.3f} / {t_plain_b:.3f} ms | bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']})")
+            f"({bd['bound_by']}; 2,560 B a sequence and step; with dgh stored whole, "
+            f"3,072 B: {bd_old['bound_ms']:.4f} ms)")
         del ins
     t_kernel, t_plain, bd = times[TRAIN_B]
     results["gru_bwd"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain, **bd,
@@ -511,16 +516,36 @@ def check_pq(results: dict):
             worst = max(worst, (v - vr).abs().max().item())
             log(f"[kernels] pq_winmin m={m} ratio {ratio}: vals and args exactly equal "
                 f"({SCAN_ROWS} rows x {SCAN_Q} queries)")
+        # timed at ratio 1.3: a PQFLAT search quantizes its queries on their
+        # own scale when they outgrow the codebook's (see phase genome_pq)
+        r2 = 2.0 * float(np.float32(1.3))
         t_plain_a = cuda_time(
-            lambda: sk.pq_winmin_reference(q8, codes, cent8, SCAN_ROWS, 2.0), 2)
-        t_kernel = cuda_time(lambda: sk.pq_winmin(q8, codes, cent8, SCAN_ROWS, 2.0), 5)
+            lambda: sk.pq_winmin_reference(q8, codes, cent8, SCAN_ROWS, r2), 2)
+        t_kernel = cuda_time(lambda: sk.pq_winmin(q8, codes, cent8, SCAN_ROWS, r2), 5)
         t_plain_b = cuda_time(
-            lambda: sk.pq_winmin_reference(q8, codes, cent8, SCAN_ROWS, 2.0), 2)
+            lambda: sk.pq_winmin_reference(q8, codes, cent8, SCAN_ROWS, r2), 2)
         tops = 2.0 * SCAN_ROWS * SCAN_Q * 128 / (t_kernel * 1e-3) / 1e12
-        log(f"[kernels] pq_winmin m={m} {SCAN_ROWS} rows x {SCAN_Q} queries: kernel "
-            f"{t_kernel:.3f} ms ({tops:.1f} int8 TOP/s) | plain {t_plain_a:.3f} / "
-            f"{t_plain_b:.3f} ms")
+        log(f"[kernels] pq_winmin m={m} {SCAN_ROWS} rows x {SCAN_Q} queries, ratio 1.3: "
+            f"kernel {t_kernel:.3f} ms ({tops:.1f} int8 TOP/s) | "
+            f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms")
         times[m] = (t_kernel, (t_plain_a + t_plain_b) / 2)
+    # tie-heavy: codebook entries in {-1, 0, 1}, 4 a subspace (m 8, nbits 2),
+    # every row one of 16 code patterns, so most window minima are shared
+    # and only the lowest-row rule decides
+    patterns = rng.integers(0, 4, (16, 8), dtype=np.uint8)
+    codes = torch.from_numpy(patterns[rng.integers(0, 16, SCAN_ROWS)]).to(dev)
+    cent8 = torch.from_numpy(rng.integers(-1, 2, (8, 4, 16), dtype=np.int8)).to(dev)
+    for ratio in (1.0, 1.3):
+        ratio2 = 2.0 * float(np.float32(ratio))
+        v, a = sk.pq_winmin(q8, codes, cent8, ntotal, ratio2)
+        vr, ar = sk.pq_winmin_reference(q8, codes, cent8, ntotal, ratio2)
+        torch.cuda.synchronize()
+        if not (torch.equal(v, vr) and torch.equal(a, ar)):
+            bad = (v != vr) | (a != ar)
+            raise AssertionError(f"pq_winmin tie-heavy ratio {ratio}: "
+                                 f"{int(bad.sum())} of {bad.numel()} entries differ")
+        log(f"[kernels] pq_winmin tie-heavy (m=8, nbits 2, codebook in {{-1, 0, 1}}, 16 code "
+            f"patterns) ratio {ratio}: vals and args exactly equal")
     nbytes = SCAN_ROWS * 8 + 8 * 256 * 16 + SCAN_Q * 128 + (SCAN_ROWS // sk.W) * SCAN_Q * 8
     results["pq_winmin"] = {"max_abs_err": worst, "ms": times[8][0],
                             "plain_ms": times[8][1],
@@ -968,8 +993,11 @@ def phase_genome_pq(results: dict):
     fused_i, fused_d = engine.search(q, 10)
     torch.cuda.synchronize()
     t_steady = time.perf_counter() - t0
+    # the ratio this search scored at (the kernel's ratio2 is twice it)
+    _, batch_ratio = query_scale_ratio(
+        q if engine.rot is None else np.asarray(q, np.float32) @ engine.rot, engine.cb8.scale)
     log(f"[genome_pq] steady embed+search (k=10): {N_READS} reads in {t_steady:.3f} s "
-        f"({N_READS / t_steady:.0f} reads/s)")
+        f"({N_READS / t_steady:.0f} reads/s); query scale ratio {batch_ratio:.4f}")
 
     sub = slice(0, 1024)
     _, ex_d = engine.search(q[sub], 10, exact=True)

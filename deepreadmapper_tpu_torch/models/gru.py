@@ -63,12 +63,14 @@ def gru_reference(x, w, bzr, r, rbh, reverse: bool, last_only: bool):
 def gru_bwd_reference(h_prev, z, r, n, gnb, ct, rT, reverse: bool = False):
     """Plain version of the cotangent recurrence: transcribes the lax.scan
     branch of gru_pallas._bwd_manual as a Python loop over time.  Inputs
-    [T,B,64] fp32 and rT [192,64]; returns (dgx, dgh) [T,B,192] fp32.  The
-    walk runs t = T-1 .. 0, or t = 0 .. T-1 for a reverse-direction GRU."""
+    [T,B,64] fp32 and rT [192,64]; returns (dgx [T,B,192], dghn [T,B,64])
+    fp32.  The JAX recurrence's dgh [T,B,192] is cat(dgx[..., :128], dghn):
+    its first 128 columns repeat dgx's, so only the last 64 are returned.
+    The walk runs t = T-1 .. 0, or t = 0 .. T-1 for a reverse-direction GRU."""
     t_steps, b, _ = z.shape
     lam = torch.zeros((b, H), dtype=torch.float32, device=z.device)
     dgx = torch.empty((t_steps, b, G), dtype=torch.float32, device=z.device)
-    dgh = torch.empty_like(dgx)
+    dghn = torch.empty((t_steps, b, H), dtype=torch.float32, device=z.device)
     steps = range(t_steps) if reverse else range(t_steps - 1, -1, -1)
     for t in steps:
         zt, rt, nt = z[t], r[t], n[t]
@@ -77,36 +79,39 @@ def gru_bwd_reference(h_prev, z, r, n, gnb, ct, rT, reverse: bool = False):
         dn = d * (1.0 - zt)
         dgn = dn * (1.0 - nt * nt)
         dr = dgn * gnb[t]
-        dghn = dgn * rt
+        dgh_n = dgn * rt
         dgz = dz * zt * (1.0 - zt)
         dgr = dr * rt * (1.0 - rt)
-        dgh_t = torch.cat([dgz, dgr, dghn], dim=-1)
         dgx[t] = torch.cat([dgz, dgr, dgn], dim=-1)
-        dgh[t] = dgh_t
-        lam = d * zt + dgh_t @ rT
-    return dgx, dgh
+        dghn[t] = dgh_n
+        lam = d * zt + torch.cat([dgz, dgr, dgh_n], dim=-1) @ rT
+    return dgx, dghn
 
 
 def _launch_bwd(ins, rT, reverse: bool):
-    """Run csrc/gru_bwd.cu on CUDA tensors; allocates the outputs."""
+    """Run csrc/gru_bwd.cu on CUDA tensors; allocates the outputs.  The
+    kernel copies its inputs in 16-byte pieces, so an input that starts off
+    a 16-byte boundary (a view into a larger tensor) is copied first."""
     t_steps, b, _ = ins[0].shape
     dgx = torch.empty((t_steps, b, G), dtype=torch.float32, device=rT.device)
-    dgh = torch.empty_like(dgx)
+    dghn = torch.empty((t_steps, b, H), dtype=torch.float32, device=rT.device)
     if b == 0 or t_steps == 0:
-        return dgx, dgh
+        return dgx, dghn
+    ins = [a if a.data_ptr() % 16 == 0 else a.clone() for a in ins]
     with torch.cuda.device(rT.device):
         stream = torch.cuda.current_stream(rT.device).cuda_stream
         kernels.GRU_BWD.launch(
             *(a.data_ptr() for a in ins), rT.data_ptr(), dgx.data_ptr(),
-            dgh.data_ptr(), t_steps, b, int(reverse), stream,
+            dghn.data_ptr(), t_steps, b, int(reverse), stream,
         )
-    return dgx, dgh
+    return dgx, dghn
 
 
 def gru_bwd(h_prev, z, r, n, gnb, ct, rT, reverse: bool = False):
     """Cotangent recurrence of one GRU call: (h_prev, z, r, n, gnb, ct)
-    [T,B,64] fp32 and rT [192,64] fp32 -> (dgx, dgh) [T,B,192] fp32.  The
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    [T,B,64] fp32 and rT [192,64] fp32 -> (dgx [T,B,192], dghn [T,B,64])
+    fp32, as gru_bwd_reference.  The kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     ins = (h_prev, z, r, n, gnb, ct)
     shape = tuple(z.shape)
     if len(shape) != 3 or shape[2] != H:
@@ -160,17 +165,18 @@ def bwd_manual(x, w, bzr, r, rbh, reverse: bool, hs, ct_seq):
     h_prev, z, rg, n, gnb = recompute_gates(xf, wf, bzrf, rf, rbhf, hsf, reverse)
 
     # -- the sequential cotangent recurrence
-    dgx, dgh = gru_bwd(h_prev, z, rg, n, gnb, ct, rf.T, reverse)
+    dgx, dghn = gru_bwd(h_prev, z, rg, n, gnb, ct, rf.T, reverse)
     del z, rg, n, gnb
 
-    # -- hoisted contractions over all steps
+    # -- hoisted contractions over all steps; dgh = cat(dgx[..., :128], dghn)
     dgx2 = dgx.reshape(t_steps * b, G)
-    dgh2 = dgh.reshape(t_steps * b, G)
+    dghn2 = dghn.reshape(t_steps * b, H)
+    hp2t = h_prev.reshape(t_steps * b, H).T
     dx = (dgx2 @ wf.T).reshape(t_steps, b, din)
     dw = xf.reshape(t_steps * b, din).T @ dgx2
     dbzr = dgx2.sum(0)
-    dr = h_prev.reshape(t_steps * b, H).T @ dgh2
-    drbh = dgh2[:, 2 * H :].sum(0)
+    dr = torch.cat([hp2t @ dgx2[:, : 2 * H], hp2t @ dghn2], 1)
+    drbh = dghn2.sum(0)
     grads = (dx, dw, dbzr, dr, drbh)
     return tuple(g.to(dt) for g, dt in zip(grads, in_dts))
 

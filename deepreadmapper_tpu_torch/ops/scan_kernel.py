@@ -40,6 +40,7 @@ _MAX_CHUNK_UNITS = 8   # chunk <= 8 * 2^18 = 2^21 rows
 _KQ = 128     # the kernel's query tile (csrc/int8_winmin.cu QTILE)
 _KR = 128     # the kernel's row slab (csrc/int8_winmin.cu SLAB)
 _KWPB = 8     # windows per block (csrc/int8_winmin.cu WPB)
+_KPQWPB = 32  # windows per block of the PQ scan (csrc/pq_winmin.cu WPB)
 
 
 def can_fuse(n: int, n_padded: int, k: int, device: torch.device) -> bool:
@@ -191,9 +192,13 @@ def pq_winmin(q8, codes, cent8, ntotal: int, ratio2: float, w: int = W):
     if dsub % 4:
         raise ValueError(f"pq_winmin kernel needs 128/m a multiple of 4, got m={m}")
     nwin = np_ // w
-    if -(-nwin // _KWPB) > 65535:
+    if -(-nwin // _KPQWPB) > 65535:
         raise ValueError(f"pq_winmin grid too large for Np={np_}, w={w}")
-    q8, codes, cent8 = q8.contiguous(), codes.contiguous(), cent8.contiguous()
+    # the kernel reads the codes and the codebook in 16-byte pieces: a view
+    # off a 16-byte boundary is copied first
+    q8 = q8.contiguous()
+    codes, cent8 = (a if a.data_ptr() % 16 == 0 else a.clone()
+                    for a in (codes.contiguous(), cent8.contiguous()))
     vals = torch.empty((nwin, qp), dtype=torch.float32, device=q8.device)
     args = torch.empty((nwin, qp), dtype=torch.int32, device=q8.device)
     if qp == 0 or nwin == 0:

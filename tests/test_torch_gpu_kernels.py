@@ -140,21 +140,45 @@ def test_sw_kernel_matches_plain(cuda):
     assert empty.shape == (0,)
 
 
-@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (4, 8), (8, 6)])
+def _pq_tie_book(rng, np_):
+    """Tie-heavy PQ inputs (m 8, nbits 2): codebook entries in {-1, 0, 1}
+    and every row one of 16 code patterns, so most window minima are
+    shared by several rows and only the lowest-row rule decides."""
+    patterns = rng.integers(0, 4, (16, 8))
+    return patterns[rng.integers(0, 16, np_)], rng.integers(-1, 2, (8, 4, 16))
+
+
+# (rows, queries, w, ntotal): the main layout with part of the last window
+# masked; one block over one slab (the fragment layouts alone); two slabs a
+# window; and an ntotal that masks the last window whole, (3.4e38, its
+# first row)
+PQ_LAYOUTS = {"8192x640": (8192, 640, 128, 8192 - 333), "one block": (128, 128, 128, 123),
+              "w256": (8192, 640, 256, 8192 - 333),
+              "masked window": (8192, 256, 128, 8192 - 128 - 77)}
+
+
+@pytest.mark.parametrize("layout", list(PQ_LAYOUTS))
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (4, 8), (8, 6), (8, "ties")])
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
-def test_pq_winmin_kernel_matches_plain(cuda, m, nbits, ratio):
+def test_pq_winmin_kernel_matches_plain(cuda, m, nbits, ratio, layout):
+    np_, qp, w, ntotal = PQ_LAYOUTS[layout]
     rng = np.random.default_rng(5)
-    codes = torch.tensor(rng.integers(0, 1 << nbits, (8192, m)), dtype=torch.uint8).to(cuda)
-    cent8 = torch.tensor(rng.integers(-127, 128, (m, 1 << nbits, 128 // m)),
-                         dtype=torch.int8).to(cuda)
-    q8 = torch.tensor(rng.integers(-127, 128, (640, 128)), dtype=torch.int8).to(cuda)
+    if nbits == "ties":
+        codes, cent8 = _pq_tie_book(rng, np_)
+    else:
+        codes = rng.integers(0, 1 << nbits, (np_, m))
+        cent8 = rng.integers(-127, 128, (m, 1 << nbits, 128 // m))
+    codes = torch.tensor(codes, dtype=torch.uint8).to(cuda)
+    cent8 = torch.tensor(cent8, dtype=torch.int8).to(cuda)
+    q8 = torch.tensor(rng.integers(-127, 128, (qp, 128)), dtype=torch.int8).to(cuda)
     ratio2 = 2.0 * float(np.float32(ratio))
-    ntotal = 8192 - 333
     before = kernels.PQ_WINMIN.launches
-    v, a = sk.pq_winmin(q8, codes, cent8, ntotal, ratio2)
+    v, a = sk.pq_winmin(q8, codes, cent8, ntotal, ratio2, w)
     assert kernels.PQ_WINMIN.launches == before + 1
-    vr, ar = sk.pq_winmin_reference(q8, codes, cent8, ntotal, ratio2)
+    vr, ar = sk.pq_winmin_reference(q8, codes, cent8, ntotal, ratio2, w)
     assert torch.equal(v, vr) and torch.equal(a, ar)
+    if layout == "masked window":
+        assert bool((v[-1] == 3.4e38).all()) and bool((a[-1] == np_ - 128).all())
 
 
 def test_fused_scan_topk_pq_kernel_matches_plain(cuda):
@@ -379,14 +403,19 @@ def test_ivf_search_on_cuda_matches_cpu(cuda, index_type, monkeypatch):
         np.testing.assert_array_equal(gd, cd)
 
 
-@pytest.mark.parametrize("b", [512, 1001])  # the training batch, and a ragged one
+# (T, B): the training batch and a ragged one; T = 1 is one step with no
+# product (the elementwise part and the stores alone) and T = 2 one product,
+# which catch a wrong weight-to-lane mapping before 123 steps blur it;
+# B = 1, 2 and 17 leave a block half empty or one sequence over
+@pytest.mark.parametrize("t_steps,b", [(123, 512), (123, 1001), (1, 512), (2, 512),
+                                       (2, 17), (123, 1), (123, 2), (123, 17)])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_gru_bwd_kernel_matches_plain(cuda, b, reverse):
-    """The cotangent recurrence (#9) against its plain version: max abs
-    error within 1e-5 of the largest value (fp32, the 192-deep product
-    summed in another order)."""
+def test_gru_bwd_kernel_matches_plain(cuda, t_steps, b, reverse):
+    """The cotangent recurrence (#9) against its plain version: (dgx
+    [T,B,192], dghn [T,B,64]), max abs error within 1e-5 of the largest
+    value (fp32, the 192-deep product summed in another order)."""
     rng = np.random.default_rng(11)
-    shape = (123, b, gru.H)
+    shape = (t_steps, b, gru.H)
     arrs = [rng.uniform(-1, 1, shape), rng.uniform(0, 1, shape), rng.uniform(0, 1, shape),
             rng.uniform(-1, 1, shape), rng.standard_normal(shape), rng.standard_normal(shape),
             rng.standard_normal((gru.G, gru.H)) * 0.2]
@@ -396,8 +425,8 @@ def test_gru_bwd_kernel_matches_plain(cuda, b, reverse):
     assert kernels.GRU_BWD.launches == before + 1
     want = gru.gru_bwd_reference(*ins, reverse)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.shape == w.shape == (123, b, gru.G)
+    for g, w, width in zip(got, want, (gru.G, gru.H)):
+        assert g.shape == w.shape == (t_steps, b, width)
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-5
 
 

@@ -171,6 +171,41 @@ def test_pq_winmin_reference_matches_pallas(m, nbits, ratio):
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
 
 
+def _tie_case(np_=2 * jsk.CT, qp=jsk.QT, seed=9):
+    """Tie-heavy PQ inputs: a codebook of entries in {-1, 0, 1} with 4
+    entries a subspace (nbits 2), m = 8, and every row one of 16 code
+    patterns, so each 128-row window holds each pattern ~8 times and most
+    window minima are shared by several rows."""
+    rng = np.random.default_rng(seed)
+    patterns = rng.integers(0, 4, (16, 8)).astype(np.uint8)
+    codes = patterns[rng.integers(0, 16, np_)]
+    cent8 = rng.integers(-1, 2, (8, 4, 16)).astype(np.int8)
+    q8 = rng.integers(-127, 128, (qp, 128)).astype(np.int8)
+    return codes, cent8, q8
+
+
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_pq_winmin_reference_matches_pallas_on_ties(ratio):
+    """The tie-heavy case against the JAX kernel in interpret mode: only the
+    lowest-row rule tells most windows' answers apart."""
+    codes, cent8, q8 = _tie_case()
+    ntotal = codes.shape[0] - 300
+    ratio2 = 2.0 * float(np.float32(ratio))
+    qt_b, codes_t, cent2d = _jax_pq_args(q8, codes, cent8)
+    vj, aj = jsk._pq_winmin_call(qt_b, codes_t, ntotal, cent2d, jnp.float32(ratio2),
+                                 interpret=True)
+    vt, at = tsk.pq_winmin(torch.from_numpy(q8), torch.from_numpy(codes),
+                           torch.from_numpy(cent8), ntotal, ratio2)
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    # the case is tie-heavy: most (window, query) minima are shared by rows
+    rows = tpq.reconstruct8(torch.from_numpy(codes), torch.from_numpy(cent8)).double()
+    s = ((rows * rows).sum(1)[:, None] - ratio2 * rows @ torch.from_numpy(q8).double().T)
+    s3 = s.float()[: ntotal // tsk.W * tsk.W].reshape(-1, tsk.W, q8.shape[0])
+    shared = ((s3 == s3.amin(1, keepdim=True)).sum(1) > 1).double().mean()
+    assert shared > 0.5, float(shared)
+
+
 @pytest.mark.parametrize("ratio", RATIOS)
 def test_fused_scan_topk_pq_matches_jax(ratio):
     """Two chunks of the PQ store, plain-driven, against the JAX fused scan
