@@ -35,11 +35,12 @@ Phases (any failure raises and the exit code is not 0):
               its defaults (100 steps, batch 512, lr 1e-4; the loss must
               fall); a profile of three steps; build-index --weights ->
               pipeline on phase 5's reads (top-1 >= phase 5's - 0.01)
-Phase 3 also holds the four IVF chunk scans against their plain versions on
-a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan, and
-the GRU backward's cotangent recurrence at the training batch (512) and at
-8192, and times the GRU forward per encoder batch (B = 8192) and per launch
-at the training batch.
+Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
+results line), holds the four IVF chunk scans against their plain versions
+on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan,
+and the GRU backward's cotangent recurrence at the training batch (512)
+and at 8192, and times the GRU forward per encoder batch (B = 8192) and per
+launch at the training batch.
 The last lines are one JSON object of kernel results (time, plain time,
 bound, library time, launches on the main path), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -63,6 +64,7 @@ FIXTURE = os.path.join(ROOT, "tests", "data")
 GRU_B, GRU_T = 8192, 123
 TRAIN_B, TRAIN_STEPS = 512, 100     # the finetune CLI's default batch and steps
 SCAN_ROWS, SCAN_Q = 1 << 18, 8192
+SCAN_CHUNK = 1 << 21                # the INT8FLAT main path's chunk (choose_chunk: 8 x 2^18)
 SW_PAIRS = 65536                    # 512 reads x 128 candidates, 150 x 152 bytes
 GENOME_BP, N_READS, READ_LEN = 2_000_000, 8192, 150
 PQ_GENOME_BP = 5_000_000            # ~10M windows: the README's PQFLAT tier
@@ -377,15 +379,20 @@ def check_int8(results: dict):
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     q8 = torch.from_numpy(rng.integers(-127, 128, (SCAN_Q, 128), dtype=np.int8)).to(dev)
+    # tie-heavy: every row one of 16 patterns of values in {-2..2}, so most
+    # window minima are shared and only the lowest-row rule decides
+    patterns = rng.integers(-2, 3, (16, 128), dtype=np.int8)
     cases = [
-        ("full-range ratio 1", 127, 2.0),
-        ("full-range ratio 1.3", 127, 2.0 * float(np.float32(1.3))),
-        ("tie-heavy ratio 1", 2, 2.0),
+        ("full-range ratio 1", lambda: rng.integers(-127, 128, (SCAN_ROWS, 128), dtype=np.int8),
+         2.0),
+        ("full-range ratio 1.3",
+         lambda: rng.integers(-127, 128, (SCAN_ROWS, 128), dtype=np.int8),
+         2.0 * float(np.float32(1.3))),
+        ("tie-heavy ratio 1", lambda: patterns[rng.integers(0, 16, SCAN_ROWS)], 2.0),
     ]
     worst = 0.0
-    for tag, amp, ratio2 in cases:
-        r8 = torch.from_numpy(
-            rng.integers(-amp, amp + 1, (SCAN_ROWS, 128), dtype=np.int8)).to(dev)
+    for tag, rows, ratio2 in cases:
+        r8 = torch.from_numpy(rows()).to(dev)
         ntotal = SCAN_ROWS - 1000  # mask part of the last tile
         v, a = sk.int8_winmin(q8, r8, ntotal, ratio2)
         vr, ar = sk.int8_winmin_reference(q8, r8, ntotal, ratio2)
@@ -411,14 +418,34 @@ def check_int8(results: dict):
     t_plain_a = cuda_time(lambda: sk.int8_winmin_reference(q8, rs, SCAN_ROWS, 2.0), 2)
     t_kernel = cuda_time(lambda: sk.int8_winmin(q8, rs, SCAN_ROWS, 2.0), 5)
     t_plain_b = cuda_time(lambda: sk.int8_winmin_reference(q8, rs, SCAN_ROWS, 2.0), 2)
-    t_plain = (t_plain_a + t_plain_b) / 2
     tops = 2.0 * SCAN_ROWS * SCAN_Q * 128 / (t_kernel * 1e-3) / 1e12
     log(f"[kernels] int8_winmin {SCAN_ROWS} rows x {SCAN_Q} queries: kernel "
         f"{t_kernel:.3f} ms ({tops:.1f} int8 TOP/s) | plain {t_plain_a:.3f} / "
         f"{t_plain_b:.3f} ms")
-    nbytes = SCAN_ROWS * 128 + SCAN_Q * 128 + (SCAN_ROWS // sk.W) * SCAN_Q * 8
-    results["int8_winmin"] = {"max_abs_err": worst, "ms": t_kernel, "plain_ms": t_plain,
-                              **bound(nbytes, 2.0 * SCAN_ROWS * SCAN_Q * 128, INT8_OPS_S),
+    # the main path's launch (phase 5's INT8FLAT search), held and timed
+    # at ratio 1
+    rows = SCAN_CHUNK
+    del r8, rs, d, i, dr, ir
+    r8 = torch.from_numpy(rng.integers(-127, 128, (rows, 128), dtype=np.int8)).to(dev)
+    v, a = sk.int8_winmin(q8, r8, rows - 1000, 2.0)
+    vr, ar = sk.int8_winmin_reference(q8, r8, rows - 1000, 2.0)
+    torch.cuda.synchronize()
+    if not (torch.equal(v, vr) and torch.equal(a, ar)):
+        raise AssertionError(f"int8_winmin at {rows} rows: kernel != plain")
+    del v, a, vr, ar
+    torch.cuda.empty_cache()
+    t_plain_a = cuda_time(lambda: sk.int8_winmin_reference(q8, r8, rows, 2.0), 1)
+    t_kernel = cuda_time(lambda: sk.int8_winmin(q8, r8, rows, 2.0), 3)
+    t_plain_b = cuda_time(lambda: sk.int8_winmin_reference(q8, r8, rows, 2.0), 1)
+    ops = 2.0 * rows * SCAN_Q * 128
+    nbytes = rows * 128 + SCAN_Q * 128 + (rows // sk.W) * SCAN_Q * 8
+    b = bound(nbytes, ops, INT8_OPS_S)
+    log(f"[kernels] int8_winmin {rows} rows x {SCAN_Q} queries (the main path's chunk): "
+        f"vals and args exactly equal; kernel {t_kernel:.3f} ms "
+        f"({ops / (t_kernel * 1e-3) / 1e12:.1f} int8 TOP/s) | plain {t_plain_a:.3f} / "
+        f"{t_plain_b:.3f} ms | bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    results["int8_winmin"] = {"max_abs_err": worst, "ms": t_kernel,
+                              "plain_ms": (t_plain_a + t_plain_b) / 2, **b,
                               "library_ms": None}
 
 
@@ -621,16 +648,17 @@ def check_ivf(results: dict):
     vis = torch.unique(slot_of.reshape(-1).long() // ik.QTK)
     _first, count = ik.visit_steps(sv, qidx.shape[0])
     steps, visits = int(count[vis].sum()), int(vis.numel())
+    chunks = int(torch.unique(sc[torch.isin(sv[:-1].long(), vis)]).numel())
     c8, rn8 = eng8._device()[:2]
     (packed, cent2d), rnpq = engpq._device()[:2]
     log(f"[kernels] IVF layout: {eng8.ntotal} rows in {eng8.n_slabs} slabs of "
         f"{int(eng8._chunk_meta()[0][:-1].min())}-{int(eng8._chunk_meta()[0][:-1].max())} "
         f"chunks; plan of {nq} queries x nprobe {IVF_NPROBE}: {visits} visits, {steps} "
-        f"chunk steps (the plan's {padded} less its padding)")
+        f"chunk steps (the plan's {padded} less its padding) over {chunks} distinct chunks")
     rows_out = ik.fold_rows(nq)
 
     def cases(r2):
-        """name -> (kernel call, plain call, compared part, bytes per step, output bytes)"""
+        """name -> (kernel call, plain call, compared part, bytes per chunk, output bytes)"""
         return {
             "ivf_chunk_int8": (
                 lambda: ik.ivf_chunk_scan_int8(sc, sv, qsteps, c8, rn8, r2),
@@ -662,17 +690,17 @@ def check_ivf(results: dict):
             del got, want
     log("[kernels] IVF chunk scans: packed states of every referenced visit and fold "
         "rows [0, nq) bit-exact vs plain at ratio 1 and 1.3")
-    for name, (kernel, plain, _part, step_bytes, out_bytes) in cases(
+    for name, (kernel, plain, _part, chunk_bytes, out_bytes) in cases(
             2.0 * float(np.float32(1.3))).items():
         t_plain_a = cuda_time(plain, 1)
         t_kernel = cuda_time(kernel, 3)
         t_plain_b = cuda_time(plain, 1)
-        nbytes = steps * step_bytes + visits * ik.QTK * 128 + out_bytes
-        ops = 2.0 * steps * ik.QTK * ik.CHK * 128
-        b = bound(nbytes, ops, INT8_OPS_S)
+        b = _ivf_bound(chunks, steps, visits, chunk_bytes // ik.CHK, out_bytes)
+        step_gb = (steps * chunk_bytes + visits * ik.QTK * 128 + out_bytes) / 1e9
         log(f"[kernels] {name}: kernel {t_kernel:.3f} ms | plain {t_plain_a:.3f} / "
             f"{t_plain_b:.3f} ms | bound {b['bound_ms']:.3f} ms ({b['bound_by']}; "
-            f"{ops / 1e12:.3f} int8 TOP, {nbytes / 1e9:.3f} GB)")
+            f"{2.0 * steps * ik.QTK * ik.CHK * 128 / 1e12:.3f} int8 TOP; {step_gb:.3f} GB "
+            f"when each chunk step reads its rows, {step_gb / HBM_BYTES_S * 1e12:.3f} ms)")
         results[name] = {"max_abs_err": 0.0, "ms": t_kernel,
                          "plain_ms": (t_plain_a + t_plain_b) / 2, **b, "library_ms": None}
     del eng8, engpq, c8, rn8, packed, rnpq
@@ -872,6 +900,9 @@ def phase_genome(results: dict):
         f"({N_READS / t_steady:.0f} reads/s; median of {len(reps)} passes, "
         f"{min(r[0] for r in reps):.3f}-{max(r[0] for r in reps):.3f} s; the embed "
         f"{t_embed:.3f} s of it)")
+    _profile("genome", "pass",
+             lambda: [engine.search(vec.vectorize_wrapped_bytes(mat, lengths), 128)
+                      for _ in range(2)], 2, _SEARCH_GROUPS)
 
     # The fused scan keeps one row per 128-row window (the contract of the
     # JAX package's kernel).  A read's exact top-128 are mostly its own
@@ -1068,16 +1099,25 @@ def _split(tm: dict) -> str:
                       ("probe", "plan", "kernel", "merge", "download") if k in tm)
 
 
-def _plan_bound(tm: dict, row_bytes: int, nq: int, fold: bool) -> str:
-    """The scan's bound on this batch's plan: every chunk step reads its
-    CHK rows (row_bytes each, norm included), every visit its QTK query
-    rows; the output is the fold accumulator or the packed visit states."""
+def _ivf_bound(chunks: int, steps: int, visits: int, row_bytes: int, out_bytes: int) -> dict:
+    """An IVF scan's bound on a plan: each distinct chunk the plan steps
+    through is read once (CHK rows of row_bytes, norm included), each visit
+    its QTK query rows, the output written once; every chunk step does QTK
+    x CHK int8 dot products of 128."""
     from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
 
-    steps, visits = tm["plan_steps"], tm["plan_visits"]
+    return bound(chunks * ik.CHK * row_bytes + visits * ik.QTK * 128 + out_bytes,
+                 2.0 * steps * ik.QTK * ik.CHK * 128, INT8_OPS_S)
+
+
+def _plan_bound(tm: dict, row_bytes: int, nq: int, fold: bool) -> str:
+    """The scan's bound on this batch's plan; the output is the fold
+    accumulator or the packed visit states."""
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+
+    visits = tm["plan_visits"]
     out = (ik.fold_rows(nq) * 2 * ik.FS if fold else visits * ik.QTK * 4) * ik.KP * 4
-    b = bound(steps * ik.CHK * row_bytes + visits * ik.QTK * 128 + out,
-              2.0 * steps * ik.QTK * ik.CHK * 128, INT8_OPS_S)
+    b = _ivf_bound(tm["plan_chunks"], tm["plan_steps"], visits, row_bytes, out)
     return f"scan bound {b['bound_ms']:.3f} ms ({b['bound_by']})"
 
 
@@ -1106,8 +1146,8 @@ def _ivf_routes(tag: str, engine, q: np.ndarray, packed_kernel: str, fold_kernel
     t_fold = time.perf_counter() - t0
     log(f"[{tag}] steady search of {len(q)} reads (host plan + fold, split synchronised): "
         f"{t_fold:.3f} s ({len(q) / t_fold:.0f} reads/s); {_split(tm)}; plan "
-        f"{tm['plan_visits']} visits, {tm['plan_steps']} chunk steps, "
-        f"{_plan_bound(tm, row_bytes, len(q), True)}; "
+        f"{tm['plan_visits']} visits, {tm['plan_steps']} chunk steps over "
+        f"{tm['plan_chunks']} distinct chunks, {_plan_bound(tm, row_bytes, len(q), True)}; "
         f"{stats['probed_rows_per_query']} rows probed per read (coverage {stats['coverage']})")
     engine._FOLD_MIN_Q = 1 << 30  # the packed merge on the same batch
     tm = {}
@@ -1129,8 +1169,8 @@ def _ivf_routes(tag: str, engine, q: np.ndarray, packed_kernel: str, fold_kernel
         dt = time.perf_counter() - t0
         counts = kernels.counts()
         log(f"[{tag}] {n} reads ({route}): {dt * 1e3:.1f} ms ({n / dt:.0f} reads/s); "
-            f"{_split(tm)}; {tm['plan_visits']} visits, {tm['plan_steps']} chunk steps, "
-            f"{_plan_bound(tm, row_bytes, n, False)}; "
+            f"{_split(tm)}; {tm['plan_visits']} visits, {tm['plan_steps']} chunk steps over "
+            f"{tm['plan_chunks']} distinct chunks, {_plan_bound(tm, row_bytes, n, False)}; "
             f"launches {packed_kernel} {counts[packed_kernel]}, {fold_kernel} "
             f"{counts[fold_kernel]}")
         if counts[packed_kernel] < 1 or counts[fold_kernel] != 0:
@@ -1280,28 +1320,30 @@ def phase_genome_ivfpq(results: dict, pqflat: dict):
                 4 * -(-engine.codes_cm.shape[1] // 4) + 4)
 
 
-_PROFILE_GROUPS = (  # kernel-name fragment -> part of a training step
+_STEP_GROUPS = (  # kernel-name fragment -> part of a training step
     ("gru_fwd", "GRU forward (#1)"), ("gru_bwd", "GRU backward (#9)"),
     ("gemm", "matmuls"), ("Kernel2", "matmuls"), ("index", "embedding gather/scatter"),
     ("sort", "embedding gather/scatter"), ("multi_tensor", "Adam"), ("adam", "Adam"),
     ("Memcpy", "copies"), ("Memset", "copies"),
 )
+_SEARCH_GROUPS = (  # kernel-name fragment -> part of an INT8FLAT embed + search
+    ("int8_winmin", "int8 scan (#2)"), ("gru_fwd", "GRU forward (#1)"), ("sort", "sort"),
+    ("Memcpy", "copies"), ("Memset", "copies"),
+)
 
 
-def _profile_steps(params, opt, batches) -> None:
-    """torch.profiler over a few training steps: device time by part of the
-    step, and the device's busy share of the window."""
+def _profile(tag: str, unit: str, run, n: int, groups) -> None:
+    """torch.profiler over run() (n units of work): device time per unit by
+    part (kernel-name fragment -> part; the rest "other"), and the device's
+    busy share of the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deepreadmapper_tpu_torch.parallel.train import train_step
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for rt, wt in batches:
-            train_step(params, opt, rt, wt)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     parts: dict[str, float] = {}
@@ -1309,18 +1351,16 @@ def _profile_steps(params, opt, batches) -> None:
         us = float(e.self_device_time_total)
         if e.device_type != DeviceType.CUDA or us <= 0:  # kernels, copies, memsets
             continue
-        part = next((p for frag, p in _PROFILE_GROUPS if frag.lower() in e.key.lower()),
-                    "other elementwise")
+        part = next((p for frag, p in groups if frag.lower() in e.key.lower()), "other")
         parts[part] = parts.get(part, 0.0) + us
     busy = sum(parts.values()) / 1e3
-    n = len(batches)
     if busy <= 0:
-        log("[finetune] profiler: no device time recorded")
+        log(f"[{tag}] profiler: no device time recorded")
         return
     split = " | ".join(f"{k} {v / 1e3 / n:.2f} ms" for k, v in
                        sorted(parts.items(), key=lambda kv: -kv[1]))
-    log(f"[finetune] profile of {n} steps (profiler on): wall {wall * 1e3 / n:.2f} ms/step, "
-        f"device busy {busy / n:.2f} ms/step ({busy / (wall * 1e3):.1%}); per step: {split}")
+    log(f"[{tag}] profile over {n} x one {unit} (profiler on): wall {wall * 1e3 / n:.2f} ms/{unit}, "
+        f"device busy {busy / n:.2f} ms/{unit} ({busy / (wall * 1e3):.1%}); per {unit}: {split}")
 
 
 def phase_finetune(results: dict, genome: dict):
@@ -1426,7 +1466,9 @@ def phase_finetune(results: dict, genome: dict):
     opt = train.make_optimizer(params)
     batches = [tuple(torch.from_numpy(a).cuda() for a in b) for b in batches]
     train.train_step(params, opt, *batches[0])  # warm
-    _profile_steps(params, opt, batches)
+    _profile("finetune", "step",
+             lambda: [train.train_step(params, opt, rt, wt) for rt, wt in batches],
+             len(batches), _STEP_GROUPS)
 
     # 4. build-index --weights -> pipeline on phase 5's reads
     idx, out = os.path.join(work, "idx"), os.path.join(work, "out")

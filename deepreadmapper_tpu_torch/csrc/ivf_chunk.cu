@@ -20,31 +20,42 @@
 //
 // What bounds it on an H100: device memory.  A chunk step reads 2048 rows
 // x (128 B + 4 B norm) and does 32 x 2048 x 128 x 2 int8 operations, ~62
-// operations per byte, below the card's ~590 int8 operations per byte of
-// bandwidth.  What bounds this first design is the dp4a issue rate (no
-// tensor cores yet), as in int8_winmin.cu.
+// operations per byte, far below the card's ~590 int8 operations per byte
+// of bandwidth: the int8 scan has to stream bytes, not add math.
 //
 // Design: the TPU runs one grid step per (visit, chunk) and carries the
 // visit's state across steps in VMEM scratch, folding into a VMEM-resident
-// accumulator at each visit's last step.  Hopper blocks run in no order, so:
-//  - one block per visit walks that visit's chunk steps in order (the
-//    sequential grid becomes a loop, so a visit's steps are serial: the
-//    engine cuts the plan's padding steps, all of one pad visit over the
-//    empty dump chunk, before it launches); thread (lane, group) owns lane
-//    window `lane` for the group's QPT queries and scans rows lane, lane + KP, ...
-//    of each chunk in ascending order, so the strict '<' gives the TPU's
-//    tie rule with no cross-thread merge.  The row is read straight into
-//    registers (the next one is prefetched); the visit's queries sit in
-//    shared memory and are read as warp-wide broadcasts; the 32 x KP x 4
-//    state lives in registers (QPT x 4 per thread).
-//  - the fold runs as a second kernel over the packed per-visit states:
+// accumulator at each visit's last step.  Hopper blocks run in no order, so
+// one block per visit walks that visit's chunk steps in order (the
+// sequential grid becomes a loop, so a visit's steps are serial: the
+// engine cuts the plan's padding steps, all of one pad visit over the
+// empty dump chunk, before it launches).
+//  - The int8 scan (ivf_chunk_int8): a chunk step is 16 slabs of KP = 128
+//    rows, and slab row p is lane window p.  The slabs of all the visit's
+//    steps arrive in order by cp.async (rows at a 144-byte pitch, with
+//    their 128 norms) into a ring of four slabs, three ahead of the one
+//    being scored, one barrier a slab.  Warp w owns slab rows 16w .. 16w+15
+//    (one m16 tile) for all 32 queries (four n8 tiles): per slab 4 k32 steps
+//    x 4 n-tiles = 16 int8 mma.sync m16n8k32, A fragments by ldmatrix, the
+//    visit's B fragments staged once in shared memory in fragment order.  A
+//    thread's 16 accumulators map to the same (lane window, query) pairs in
+//    every slab, so its best / second-best ladders live in registers and see
+//    their rows in ascending order: the strict '<' gives the TPU's tie rule
+//    with no cross-thread merge.  The common ladder update is one compare
+//    against the second-best.  At the visit's end the 64 KB state goes out
+//    through a shared-memory transpose (reusing the ring) as 16-byte stores.
+//  - The PQ scans: thread (lane, group) owns lane window `lane` for the
+//    group's QPT queries and scans rows lane, lane + KP, ... of each chunk
+//    in ascending order.  Each row is rebuilt from its byte-packed codes
+//    through the int8 codebook staged in shared memory (ksub x 128 B) into
+//    registers (the next one is prefetched) and scored with __dp4a against
+//    the visit's queries, read from shared memory as warp-wide broadcasts;
+//    the 32 x KP x 4 state lives in registers (QPT x 4 per thread).
+//  - The fold runs as a second kernel over the packed per-visit states:
 //    thread (query, lane) walks the query's visit rows in ascending visit
 //    id (an index the wrapper sorts) and inserts.  A single-pass fold that
 //    inserted visits as blocks finish would order ties by block timing; two
 //    passes cost the [V, QTK, 4 KP] buffer the TPU kept out of HBM.
-//  - the PQ scans rebuild each row from its byte-packed codes through the
-//    int8 codebook staged in shared memory (ksub x 128 B), then score it as
-//    the int8 scan does.
 #include "winmin.cuh"
 
 namespace {
@@ -62,16 +73,6 @@ constexpr int THREADS = KP * QG;      // one visit per block
 constexpr int FOLD_Q = 2;             // queries per fold block
 constexpr int ROWS_PER_STEP = CHK / KP;
 constexpr float BIG = winmin::BIG;
-
-// Rows of the int8 layout: codes [n_chunks * CHK][D] int8.
-struct Int8Rows {
-  const int4* codes;
-  __device__ __forceinline__ void load(int chunk, int off, int4 (&r)[V]) const {
-    const int4* p = codes + ((size_t)chunk * CHK + off) * V;
-#pragma unroll
-    for (int c = 0; c < V; ++c) r[c] = __ldg(p + c);
-  }
-};
 
 // Rows of the PQ layout: packed [n_chunks][MP][CHK] int32, code j in byte
 // j % 4 of word j / 4; cb is the int8 codebook [M * ksub][128 / M] staged
@@ -188,20 +189,159 @@ __device__ __forceinline__ void store_state(float* out, int visit, const State& 
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The int8 visit scan on mma.sync (see the design above).
+namespace mm {
+
+using namespace winmin;
+
+constexpr int WARPS = KP / 16;            // one m16 tile of lane windows a warp
+constexpr int THREADS = 32 * WARPS;
+constexpr int NT = QTK / 8;               // n8 tiles: all the visit's queries
+constexpr int KS = D / 32;                // k32 steps of a row
+constexpr int SLABS = CHK / KP;           // slabs a chunk step
+constexpr int NBUF = 4;                   // ring of slabs: 3 in flight
+constexpr int PITCH = D + 16;             // staged row pitch, bytes
+constexpr int SLAB_BYTES = KP * PITCH;
+constexpr int RING_BYTES = NBUF * SLAB_BYTES;
+constexpr int RN_BYTES = NBUF * KP * 4;
+constexpr int BQ_BYTES = NT * KS * 32 * 8;  // [nt][kk][lane] (b0, b1)
+constexpr int STG_PITCH = 4 * KP + 4;     // floats a query row of the staged state
+constexpr int SMEM = RING_BYTES + RN_BYTES + BQ_BYTES;
+constexpr int NP = 4 * NT;                // (lane window, query) pairs a thread
+static_assert(KP * D / 16 % THREADS == 0, "whole 16-byte copies a thread");
+static_assert(QTK * STG_PITCH * 4 <= RING_BYTES, "the state transpose fits the ring");
+
+// Best / second-best ladder of one pair: strict '<', earlier rows win ties.
+__device__ __forceinline__ void ladder(float s, int cand, float& b1, int& a1, float& b2,
+                                       int& a2) {
+  if (s < b2) {
+    if (s < b1) {
+      b2 = b1;
+      a2 = a1;
+      b1 = s;
+      a1 = cand;
+    } else {
+      b2 = s;
+      a2 = cand;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 int8_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfirst,
                  const int* __restrict__ vcount, const int8_t* __restrict__ qsteps,
                  const int8_t* __restrict__ codes, const float* __restrict__ rn,
                  float* __restrict__ out, float ratio2) {
-  __shared__ int4 qs[QTK * V];
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                                          // [NBUF][KP][PITCH]
+  float* rns = reinterpret_cast<float*>(smem + RING_BYTES);            // [NBUF][KP]
+  uint2* bqs = reinterpret_cast<uint2*>(smem + RING_BYTES + RN_BYTES);  // [NT][KS][32]
+
   const int visit = blockIdx.x;
-  stage_queries(qsteps, visit, qs);
+  const int first = vfirst[visit];
+  const int total = vcount[visit] * SLABS;  // the visit's slabs, steps in order
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned ring_s = smem_addr(ring), rns_s = smem_addr(rns);
+
+  auto issue = [&](int i) {  // slab i of the visit (rows and norms) into buffer i % NBUF
+    if (i < total) {
+      const size_t row0 = (size_t)__ldg(step_chunk + first + i / SLABS) * CHK + (i % SLABS) * KP;
+      const int8_t* src = codes + row0 * D;
+      const unsigned dst = ring_s + (i % NBUF) * SLAB_BYTES;
+#pragma unroll
+      for (int k = 0; k < KP * D / 16 / THREADS; ++k) {
+        const int j = tid + k * THREADS, r = j >> 3, c = j & 7;
+        cp_async16(dst + r * PITCH + 16 * c, src + r * D + 16 * c);
+      }
+      if (tid < KP / 4) cp_async16(rns_s + (i % NBUF) * KP * 4 + 16 * tid, rn + row0 + 4 * tid);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NBUF - 1; ++i) issue(i);
+
+  {  // the visit's queries as B fragments: query nt*8 + g, bytes 32kk + 4t, 32kk + 16 + 4t
+    const int* qv = reinterpret_cast<const int*>(qsteps + (size_t)visit * QTK * D);
+    for (int e = tid; e < NT * KS * 32; e += THREADS) {
+      const int l = e & 31, nt = (e >> 5) / KS, kk = (e >> 5) % KS;
+      const int* qrow = qv + (nt * 8 + (l >> 2)) * (D / 4);
+      bqs[e] = make_uint2(qrow[8 * kk + (l & 3)], qrow[8 * kk + 4 + (l & 3)]);
+    }
+  }
+
+  // pair j = (2 nt + e) * 2 + h: lane window 16 warp + g + 8h, query 8 nt + 2t + e
+  float b1[NP], b2[NP];
+  int a1[NP], a2[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    b1[j] = b2[j] = BIG;
+    a1[j] = a2[j] = 0;
+  }
+  const int rbase = warp * 16;
+  const unsigned lm_off = ldmatrix_offset(lane, PITCH) + rbase * PITCH;
+
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<NBUF - 2>();
+    // slab i has arrived, the B fragments are staged, and every read of
+    // buffer (i - 1) % NBUF is done
+    __syncthreads();
+    issue(i + NBUF - 1);
+    const int buf = i % NBUF;
+    int acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, ring_s + buf * SLAB_BYTES + lm_off + 32 * kk);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint2 b = bqs[(nt * KS + kk) * 32 + lane];
+        mma_s8(acc[nt], a, b.x, b.y);
+      }
+    }
+    const float rn0 = rns[buf * KP + rbase + g], rn1 = rns[buf * KP + rbase + g + 8];
+    const int cand = __ldg(step_chunk + first + i / SLABS) * CHK + (i % SLABS) * KP + rbase + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // query 8 nt + 2t + e: row g, then row g + 8
+        const int j = (2 * nt + e) * 2;
+        ladder(score(acc[nt][e], rn0, ratio2), cand, b1[j], a1[j], b2[j], a2[j]);
+        ladder(score(acc[nt][2 + e], rn1, ratio2), cand + 8, b1[j + 1], a1[j + 1], b2[j + 1],
+               a2[j + 1]);
+      }
+  }
+
+  // The packed state [QTK][vals | vals2 | args | args2] through shared
+  // memory (the ring is free: every copy landed and every slab was read).
+  // A row pitch of 4 KP + 4 floats puts the four queries of a store on
+  // distinct banks.
+  cp_async_wait<0>();
   __syncthreads();
-  State st;
-  const Int8Rows rows{reinterpret_cast<const int4*>(codes)};
-  scan_visit(rows, step_chunk, vfirst[visit], vcount[visit], rn, qs, ratio2, st);
-  store_state(out, visit, st);
+  float* stg = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = (2 * nt + e) * 2 + h;
+        float* p = stg + (8 * nt + 2 * t + e) * STG_PITCH + rbase + g + 8 * h;
+        p[0] = b1[j];
+        p[KP] = b2[j];
+        p[2 * KP] = __int_as_float(a1[j]);
+        p[3 * KP] = __int_as_float(a2[j]);
+      }
+  __syncthreads();
+  float4* o = reinterpret_cast<float4*>(out + (size_t)visit * QTK * 4 * KP);
+  for (int e = tid; e < QTK * KP; e += THREADS)
+    o[e] = *reinterpret_cast<const float4*>(stg + (e / KP) * STG_PITCH + 4 * (e % KP));
 }
+
+}  // namespace mm
 
 template <int M>
 __global__ void __launch_bounds__(THREADS)
@@ -307,12 +447,17 @@ int launch_fold(const void* states, const void* order, const void* qstart, const
 
 // step_chunk [S] int32, vfirst / vcount [V] int32 (each visit's first step
 // and step count), qsteps [V, 32, 128] int8, codes [n_chunks, 2048, 128] int8,
-// rn [n_chunks, 2048] fp32 -> out [V, 32, 512] fp32 packed states.
+// rn [n_chunks, 2048] fp32, codes and rn 16-byte aligned -> out [V, 32, 512]
+// fp32 packed states.
 extern "C" int ivf_chunk_int8(const void* step_chunk, const void* vfirst, const void* vcount,
                               const void* qsteps, const void* codes, const void* rn,
                               void* out, int n_visits, float ratio2, void* stream) {
   if (n_visits <= 0) return 0;
-  int8_scan_kernel<<<n_visits, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  static_assert(mm::SMEM <= 227 * 1024, "shared memory");
+  cudaError_t err = cudaFuncSetAttribute(
+      mm::int8_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, mm::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mm::int8_scan_kernel<<<n_visits, mm::THREADS, mm::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(step_chunk), static_cast<const int*>(vfirst),
       static_cast<const int*>(vcount), static_cast<const int8_t*>(qsteps),
       static_cast<const int8_t*>(codes), static_cast<const float*>(rn),

@@ -572,14 +572,18 @@ class IVFInt8Index:
 
     @staticmethod
     def _count_plan(plan, timings: dict) -> None:
-        """Add the plan's referenced visits and their chunk steps to
-        timings (plan_visits, plan_steps); padding visits are left out."""
-        _step_chunk, step_visit, qidx, slot_of = plan
+        """Add the plan's referenced visits, their chunk steps and the
+        distinct chunks those steps read to timings (plan_visits,
+        plan_steps, plan_chunks); padding visits are left out."""
+        step_chunk, step_visit, qidx, slot_of = plan
         _first, count = ik.visit_steps(step_visit, qidx.shape[0])
         wanted = torch.zeros(qidx.shape[0], dtype=torch.bool, device=qidx.device)
         wanted[slot_of.reshape(-1).long() // ik.QTK] = True
+        stepped = wanted[step_visit[:-1].long()]
         timings["plan_visits"] = timings.get("plan_visits", 0) + int(wanted.sum())
         timings["plan_steps"] = timings.get("plan_steps", 0) + int(count[wanted].sum())
+        timings["plan_chunks"] = (timings.get("plan_chunks", 0)
+                                  + int(torch.unique(step_chunk[stepped]).numel()))
 
     def _exact_scan(self, q8_pad, plan, nprobe: int, kp: int, k: int, ratio2: float):
         """Every probed slab scored in full: an exact stable top-kp per

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from deepreadmapper_tpu_torch import kernels
-from deepreadmapper_tpu_torch.ops.scan_kernel import fused_score
+from deepreadmapper_tpu_torch.ops.scan_kernel import aligned16, fused_score
 from deepreadmapper_tpu_torch.ops.topk import smallest_k
 
 QTK = 32      # queries per visit
@@ -353,11 +353,13 @@ def ivf_chunk_scan_int8(step_chunk, step_visit, qsteps, codesC, rnC, ratio2: flo
     out = torch.empty((qs.shape[0], QTK, 4 * KP), dtype=torch.float32, device=dev)
     if qs.shape[0] == 0:
         return out
+    # the int8 scan reads rows and norms in 16-byte pieces
+    codesC, rnC = aligned16(codesC.contiguous()), aligned16(rnC.contiguous())
     with torch.cuda.device(dev):
         kernels.IVF_CHUNK_INT8.launch(
             sc.data_ptr(), first.data_ptr(), count.data_ptr(), qs.data_ptr(),
-            codesC.contiguous().data_ptr(), rnC.contiguous().data_ptr(),
-            out.data_ptr(), qs.shape[0], float(ratio2), _stream(dev))
+            codesC.data_ptr(), rnC.data_ptr(), out.data_ptr(), qs.shape[0],
+            float(ratio2), _stream(dev))
     return out
 
 
@@ -388,10 +390,11 @@ def ivf_chunk_scan_int8_fold(step_chunk, step_visit, qidx, qsteps, codesC, rnC,
         return ivf_chunk_scan_int8_fold_reference(step_chunk, step_visit, qidx, qsteps,
                                                   codesC, rnC, ratio2, nq, chk)
     sc, first, count, qs = _launch_args(step_chunk, step_visit, qsteps)
+    codesC, rnC = aligned16(codesC.contiguous()), aligned16(rnC.contiguous())
     return _fold_launch(
         kernels.IVF_CHUNK_INT8_FOLD, dev, nq, qidx, count,
         (sc.data_ptr(), first.data_ptr(), count.data_ptr(), qs.data_ptr(),
-         codesC.contiguous().data_ptr(), rnC.contiguous().data_ptr()),
+         codesC.data_ptr(), rnC.data_ptr()),
         (float(ratio2),))
 
 

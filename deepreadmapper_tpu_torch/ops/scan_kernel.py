@@ -37,10 +37,10 @@ MIN_FUSED_N = 1 << 18  # below this the scan is fast anyway; NW must exceed k
 _PAD_BASE = 1 << 18    # pad codes to this multiple so chunks divide evenly
 _MAX_CHUNK_UNITS = 8   # chunk <= 8 * 2^18 = 2^21 rows
 
-_KQ = 128     # the kernel's query tile (csrc/int8_winmin.cu QTILE)
-_KR = 128     # the kernel's row slab (csrc/int8_winmin.cu SLAB)
-_KWPB = 8     # windows per block (csrc/int8_winmin.cu WPB)
-_KPQWPB = 32  # windows per block of the PQ scan (csrc/pq_winmin.cu WPB)
+# the scan block both kernels share (csrc/winmin.cuh, namespace scan)
+_KQ = 128     # queries per block (QB)
+_KR = 128     # the row slab (SLAB)
+_KWPB = 32    # windows per block (WPB)
 
 
 def can_fuse(n: int, n_padded: int, k: int, device: torch.device) -> bool:
@@ -96,6 +96,11 @@ def _row_norms(r8: torch.Tensor) -> torch.Tensor:
     return (r * r).sum(dim=1).to(torch.float32)  # exact: < 2^21
 
 
+def aligned16(a: torch.Tensor) -> torch.Tensor:
+    """a, or a copy of it when its data is off a 16-byte boundary."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
 def int8_winmin_reference(q8, r8, ntotal: int, ratio2: float, w: int = W):
     """Plain version of the kernel.  q8 [Qp, 128] int8, r8 [Np, 128] int8 ->
     (vals [Np/w, Qp] f32, args [Np/w, Qp] int32).  Loops over QT-query tiles
@@ -138,8 +143,10 @@ def int8_winmin(q8, r8, ntotal: int, ratio2: float, w: int = W):
     nwin = np_ // w
     if -(-nwin // _KWPB) > 65535:
         raise ValueError(f"int8_winmin grid too large for Np={np_}, w={w}")
+    # the kernel reads the rows in 16-byte pieces: a view off a 16-byte
+    # boundary is copied first
     q8 = q8.contiguous()
-    r8 = r8.contiguous()
+    r8 = aligned16(r8.contiguous())
     vals = torch.empty((nwin, qp), dtype=torch.float32, device=q8.device)
     args = torch.empty((nwin, qp), dtype=torch.int32, device=q8.device)
     if qp == 0 or nwin == 0:
@@ -192,13 +199,12 @@ def pq_winmin(q8, codes, cent8, ntotal: int, ratio2: float, w: int = W):
     if dsub % 4:
         raise ValueError(f"pq_winmin kernel needs 128/m a multiple of 4, got m={m}")
     nwin = np_ // w
-    if -(-nwin // _KPQWPB) > 65535:
+    if -(-nwin // _KWPB) > 65535:
         raise ValueError(f"pq_winmin grid too large for Np={np_}, w={w}")
     # the kernel reads the codes and the codebook in 16-byte pieces: a view
     # off a 16-byte boundary is copied first
     q8 = q8.contiguous()
-    codes, cent8 = (a if a.data_ptr() % 16 == 0 else a.clone()
-                    for a in (codes.contiguous(), cent8.contiguous()))
+    codes, cent8 = aligned16(codes.contiguous()), aligned16(cent8.contiguous())
     vals = torch.empty((nwin, qp), dtype=torch.float32, device=q8.device)
     args = torch.empty((nwin, qp), dtype=torch.int32, device=q8.device)
     if qp == 0 or nwin == 0:

@@ -2,13 +2,14 @@
 
 Imports chip_smoke.py from the checkout that --root names (this one by
 default), builds its kernels and runs one phase that needs nothing from the
-others: genome (INT8FLAT build-index -> pipeline, 2 Mbp) or genome_pq
-(PQFLAT -> pipeline --rerank sw, 5 Mbp), printing the phase's own lines (build
-and pipeline times, steady reads/s, gates).  For an end-to-end A/B of two
+others: genome (INT8FLAT build-index -> pipeline, 2 Mbp), genome_pq
+(PQFLAT -> pipeline --rerank sw, 5 Mbp) or genome_ivf (IVFINT8 at 40M rows,
+three routes), printing the phase's own lines (build and pipeline times,
+steady reads/s, search splits, gates).  For an end-to-end A/B of two
 checkouts, run them in one session in the order parent, change, change,
 parent:
 
-    python scripts/time_phase.py [--root DIR] [--phase genome_pq]
+    python scripts/time_phase.py [--root DIR] [--phase genome|genome_pq|genome_ivf]
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import sys
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--phase", choices=("genome", "genome_pq"), default="genome_pq")
+    ap.add_argument("--phase", choices=("genome", "genome_pq", "genome_ivf"),
+                    default="genome_pq")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)

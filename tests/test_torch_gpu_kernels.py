@@ -81,21 +81,42 @@ def test_gru_kernel_fp32_sums(cuda, din, limit):
     assert err.mean().item() <= limit
 
 
-@pytest.mark.parametrize("w", [128, 512])
+# (rows, queries, w, ntotal): the main layout with part of the last window
+# masked, at w 128 and 512; one block (128 queries x 32 windows), which
+# pins the fragment layout; a tail block (45 windows: 32 + 13); two slabs a
+# window; and an ntotal that masks the last window whole, (3.4e38, its
+# first row)
+INT8_LAYOUTS = {"8192x640": (8192, 640, 128, 8192 - 333),
+                "w512": (8192, 640, 512, 8192 - 333),
+                "one block": (4096, 128, 128, 4096 - 77),
+                "tail block": (45 * 128, 256, 128, 45 * 128 - 200),
+                "w256": (8192, 640, 256, 8192 - 333),
+                "masked window": (8192, 256, 128, 8192 - 128 - 77)}
+
+
+@pytest.mark.parametrize("layout", list(INT8_LAYOUTS))
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
-@pytest.mark.parametrize("amp", [127, 2])  # amp 2: many exact ties
-def test_int8_winmin_kernel_matches_plain(cuda, w, ratio, amp):
+# amp 2: many exact ties; "ties": every row one of 16 patterns of values in
+# {-2..2}, so most window minima are shared and only the lowest-row rule
+# decides
+@pytest.mark.parametrize("amp", [127, 2, "ties"])
+def test_int8_winmin_kernel_matches_plain(cuda, layout, ratio, amp):
+    np_, qp, w, ntotal = INT8_LAYOUTS[layout]
     rng = np.random.default_rng(1)
-    q8 = torch.tensor(rng.integers(-127, 128, (640, 128)), dtype=torch.int8).to(cuda)
-    r8 = torch.tensor(rng.integers(-amp, amp + 1, (8192, 128)),
-                      dtype=torch.int8).to(cuda)
+    q8 = torch.tensor(rng.integers(-127, 128, (qp, 128)), dtype=torch.int8).to(cuda)
+    if amp == "ties":
+        r8 = rng.integers(-2, 3, (16, 128))[rng.integers(0, 16, np_)]
+    else:
+        r8 = rng.integers(-amp, amp + 1, (np_, 128))
+    r8 = torch.tensor(r8, dtype=torch.int8).to(cuda)
     ratio2 = 2.0 * float(np.float32(ratio))
-    ntotal = 8192 - 333
     before = kernels.INT8_WINMIN.launches
     v, a = sk.int8_winmin(q8, r8, ntotal, ratio2, w)
     assert kernels.INT8_WINMIN.launches == before + 1
     vr, ar = sk.int8_winmin_reference(q8, r8, ntotal, ratio2, w)
     assert torch.equal(v, vr) and torch.equal(a, ar)
+    if layout == "masked window":
+        assert bool((v[-1] == 3.4e38).all()) and bool((a[-1] == np_ - 128).all())
 
 
 def test_fused_scan_topk_kernel_matches_plain(cuda):
@@ -309,26 +330,46 @@ def _ivf_plan(rng, visit_chunks, n_chunks, n_visits, nq):
             qidx.astype(np.int32))
 
 
-def _ivf_inputs(cuda, amp, seed=8, n_chunks=6):
+def _ivf_inputs(cuda, amp, seed=8, n_chunks=6, visit_chunks=(1, 3, 2, 1, 2), n_visits=7):
+    """Random int8 chunks of amplitude amp ("ties": every row one of 16
+    patterns of values in {-2..2}), chunk 1 half empty, the last chunk the
+    all-empty dump chunk, and a plan from _ivf_plan."""
     from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
 
     rng = np.random.default_rng(seed)
-    codes = rng.integers(-amp, amp + 1, (n_chunks, ik.CHK, 128)).astype(np.int8)
+    if amp == "ties":
+        codes = rng.integers(-2, 3, (16, 128))[rng.integers(0, 16, (n_chunks, ik.CHK))]
+        codes = codes.astype(np.int8)
+    else:
+        codes = rng.integers(-amp, amp + 1, (n_chunks, ik.CHK, 128)).astype(np.int8)
     codes[-1] = 0
     codes[1, 1500:] = 0
     rn = (codes.astype(np.int64) ** 2).sum(-1).astype(np.float32)
     rn[1, 1500:] = rn[-1] = np.float32(3.4e38)
-    sc, sv, qidx = _ivf_plan(rng, [1, 3, 2, 1, 2], n_chunks, 7, 50)
-    q = rng.integers(-127, 128, (7, 32, 128)).astype(np.int8)
+    sc, sv, qidx = _ivf_plan(rng, list(visit_chunks), n_chunks, n_visits, 50)
+    q = rng.integers(-127, 128, (n_visits, 32, 128)).astype(np.int8)
     return rng, [torch.from_numpy(a).to(cuda) for a in (sc, sv, qidx, q, codes, rn)]
 
 
+# plans: _ivf_inputs' default (visits of 1-3 steps, two of none), and
+# visits of 0, 1, 2, 3 and 7 steps over 10 chunks (the kernel's slab ring
+# crosses step boundaries)
+IVF_PLANS = {"default": {},
+             "visit lengths": dict(seed=13, n_chunks=10, visit_chunks=(0, 1, 7, 2, 0, 3, 1),
+                                   n_visits=8)}
+
+
+@pytest.mark.parametrize("plan", list(IVF_PLANS))
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
-@pytest.mark.parametrize("amp", [127, 2])  # amp 2: many exact ties
-def test_ivf_chunk_int8_kernels_match_plain(cuda, ratio, amp):
+# amp 2: many exact ties; "ties": every row one of 16 patterns of values in
+# {-2..2}, so most lane windows' best rows tie
+@pytest.mark.parametrize("amp", [127, 2, "ties"])
+def test_ivf_chunk_int8_kernels_match_plain(cuda, ratio, amp, plan):
+    """Packed and fold, bit for bit against the plain versions; a visit
+    with no steps writes (3.4e38, 0) everywhere."""
     from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
 
-    _, (sc, sv, qidx, q, codes, rn) = _ivf_inputs(cuda, amp)
+    _, (sc, sv, qidx, q, codes, rn) = _ivf_inputs(cuda, amp, **IVF_PLANS[plan])
     ratio2 = 2.0 * float(np.float32(ratio))
     before = kernels.IVF_CHUNK_INT8.launches
     got = ik.ivf_chunk_scan_int8(sc, sv, q, codes, rn, ratio2)
@@ -336,6 +377,10 @@ def test_ivf_chunk_int8_kernels_match_plain(cuda, ratio, amp):
     want = ik.ivf_chunk_scan_int8_reference(sc, sv, q, codes, rn, ratio2)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    empty = got[ik.visit_steps(sv, q.shape[0])[1] == 0]
+    assert empty.shape[0] >= 2
+    assert bool((empty[..., :2 * ik.KP] == 3.4e38).all())
+    assert bool((empty[..., 2 * ik.KP:].view(torch.int32) == 0).all())
     before = kernels.IVF_CHUNK_INT8_FOLD.launches
     got = ik.ivf_chunk_scan_int8_fold(sc, sv, qidx, q, codes, rn, ratio2, 50)
     assert kernels.IVF_CHUNK_INT8_FOLD.launches == before + 1

@@ -150,6 +150,65 @@ def test_int8_scan_matches_jax_interpret(mode, amp, ratio):
         np.testing.assert_array_equal(got[:nq].view(np.int32), want[:nq].view(np.int32))
 
 
+def _visit_length_case(amp, seed=11, nq=40):
+    """A hand-made plan over 10 chunks (+ the all-empty dump chunk 10):
+    visits 0, 4 and 7 have no steps, visit 1 walks 7 chunks, visit 5 six,
+    the others one or two; chunk 4 is half empty (3.4e38 norms) and odd
+    chunks are tie-heavy (16 row patterns of values in {-2..2}) unless amp
+    is 2, when every chunk is.  -> (sc, sv, qidx, qsteps, codesC, rnC) as
+    numpy, 8 visits."""
+    rng = np.random.default_rng(seed)
+    n_chunks = 11
+    codes = rng.integers(-amp, amp + 1, (n_chunks, tik.CHK, 128)).astype(np.int8)
+    patterns = rng.integers(-2, 3, (16, 128)).astype(np.int8)
+    for c in range(n_chunks):
+        if c % 2 or amp == 2:
+            codes[c] = patterns[rng.integers(0, 16, tik.CHK)]
+    codes[4, 1000:] = 0
+    codes[10] = 0
+    rn = (codes.astype(np.int64) ** 2).sum(-1).astype(np.float32)
+    rn[4, 1000:] = rn[10] = np.float32(3.4e38)
+    steps = {1: list(range(7)), 2: [7], 3: [8, 9], 5: list(range(1, 7)), 6: [3]}
+    sc = np.array([c for v in sorted(steps) for c in steps[v]], np.int32)
+    sv = np.array([v for v in sorted(steps) for _ in steps[v]] + [-1], np.int32)
+    qidx = np.stack([np.where(rng.random(tik.QTK) < 0.8, rng.permutation(nq)[:tik.QTK], nq)
+                     for _ in range(8)]).astype(np.int32)
+    q8 = rng.integers(-127, 128, (nq, 128)).astype(np.int8)
+    qsteps = np.concatenate([q8, np.zeros((1, 128), np.int8)])[qidx]
+    return sc, sv, qidx, qsteps, codes, rn
+
+
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("amp", [127, 2])
+@pytest.mark.parametrize("mode", ["packed", "fold"])
+def test_int8_scan_visit_lengths_match_jax_interpret(mode, amp, ratio):
+    """Visits of 0, 1, 2, 6 and 7 chunk steps and tie-heavy chunks against
+    the JAX kernels in interpret mode, exact.  A visit with no steps is
+    never written by the JAX kernel; the port writes it as (3.4e38, 0)."""
+    nq = 40
+    sc, sv, qidx, qsteps, c3, rn = _visit_length_case(amp)
+    ratio2 = 2.0 * float(np.float32(ratio))
+    t = [torch.from_numpy(a) for a in (sc, sv, qidx, qsteps, c3, rn)]
+    j = [jnp.asarray(a) for a in (sc, sv, qidx, qsteps, c3, rn)]
+    if mode == "packed":
+        want = np.asarray(jik.ivf_chunk_scan_int8(
+            j[0], j[1], j[3], j[4], j[5], ratio2, jik.CHK, qidx.shape[0], interpret=True))
+        got = tik.ivf_chunk_scan_int8(t[0], t[1], t[3], t[4], t[5], ratio2).numpy()
+        stepped = np.unique(sv[:-1])
+        np.testing.assert_array_equal(got[stepped].view(np.int32),
+                                      want[stepped].view(np.int32))
+        empty = got[[0, 4, 7]]
+        assert (empty[..., :2 * tik.KP] == np.float32(3.4e38)).all()
+        assert (empty[..., 2 * tik.KP:].view(np.int32) == 0).all()
+    else:
+        want = np.asarray(jik.ivf_chunk_scan_int8_fold(
+            j[0], j[1], j[2], j[3], j[4], j[5], ratio2, jik.CHK, nq, interpret=True))
+        got = tik.ivf_chunk_scan_int8_fold(t[0], t[1], t[2], t[3], t[4], t[5], ratio2,
+                                           nq).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got[:nq].view(np.int32), want[:nq].view(np.int32))
+
+
 def _packed_with_ties(rng, v):
     """A packed [v, QTK, 4*KP] scan output whose values come from a small
     set (many ties) and whose ids are distinct per column."""
@@ -334,6 +393,7 @@ def test_search_edge_cases_and_stats():
     assert stats["queries"] == 16 and stats["nprobe"] == 2 and stats["nlist"] == te.nlist
     assert 0 < stats["coverage"] <= 1
     assert timings["plan_visits"] >= 1 and timings["plan_steps"] >= timings["plan_visits"]
+    assert 1 <= timings["plan_chunks"] <= timings["plan_steps"]
 
 
 def test_device_defaults_to_the_card():

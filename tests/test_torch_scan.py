@@ -52,6 +52,40 @@ def test_int8_winmin_reference_matches_pallas(int8_case, w, ratio):
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
 
 
+def _int8_tie_case(np_=2 * jsk.CT, qp=jsk.QT, seed=5):
+    """Tie-heavy int8 inputs: every row one of 16 patterns of values in
+    {-2..2}, so each 128-row window holds each pattern ~8 times and most
+    window minima are shared by several rows."""
+    rng = np.random.default_rng(seed)
+    patterns = rng.integers(-2, 3, (16, 128)).astype(np.int8)
+    r8 = patterns[rng.integers(0, 16, np_)]
+    q8 = rng.integers(-127, 128, (qp, 128)).astype(np.int8)
+    return r8, q8
+
+
+@pytest.mark.parametrize("w", [128, 512])
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_int8_winmin_reference_matches_pallas_on_ties(w, ratio):
+    """The tie-heavy case against the JAX kernel in interpret mode, ntotal
+    inside a window: only the lowest-row rule tells most windows' answers
+    apart."""
+    r8, q8 = _int8_tie_case()
+    ntotal = r8.shape[0] - 300
+    ratio2 = 2.0 * float(np.float32(ratio))
+    vj, aj = jsk._int8_winmin_call(_qt_b(q8), jnp.asarray(r8), ntotal,
+                                   jnp.float32(ratio2), w=w, interpret=True)
+    vt, at = tsk.int8_winmin(torch.from_numpy(q8), torch.from_numpy(r8),
+                             ntotal, ratio2, w)
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    # the case is tie-heavy: most (window, query) minima are shared by rows
+    rows = torch.from_numpy(r8).double()
+    s = (rows * rows).sum(1)[:, None] - ratio2 * rows @ torch.from_numpy(q8).double().T
+    s3 = s.float()[: ntotal // w * w].reshape(-1, w, q8.shape[0])
+    shared = ((s3 == s3.amin(1, keepdim=True)).sum(1) > 1).double().mean()
+    assert shared > 0.5, float(shared)
+
+
 @pytest.mark.parametrize("ratio", RATIOS)
 @pytest.mark.parametrize("ntotal_cut", [0, 3000])
 def test_fused_scan_topk_matches_jax(int8_case, ratio, ntotal_cut):
