@@ -37,10 +37,11 @@ Phases (any failure raises and the exit code is not 0):
               pipeline on phase 5's reads (top-1 >= phase 5's - 0.01)
 Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
 results line), holds the four IVF chunk scans against their plain versions
-on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan,
-and the GRU backward's cotangent recurrence at the training batch (512)
-and at 8192, and times the GRU forward per encoder batch (B = 8192) and per
-launch at the training batch.
+on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
+(and times the fold pass of #6 and #8 alone on it), and the GRU backward's
+cotangent recurrence at the training batch (512) and at 8192, and times the
+GRU forward per encoder batch (B = 8192) and per launch at the training
+batch.
 The last lines are one JSON object of kernel results (time, plain time,
 bound, library time, launches on the main path), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -703,7 +704,22 @@ def check_ivf(results: dict):
             f"when each chunk step reads its rows, {step_gb / HBM_BYTES_S * 1e12:.3f} ms)")
         results[name] = {"max_abs_err": 0.0, "ms": t_kernel,
                          "plain_ms": (t_plain_a + t_plain_b) / 2, **b, "library_ms": None}
-    del eng8, engpq, c8, rn8, packed, rnpq
+    # the fold pass of #6 and #8 alone over the PQ scan's states: the kernel
+    # (its index sorted beforehand), then with the index sort as they run it
+    r2 = 2.0 * float(np.float32(1.3))
+    states = ik.ivf_chunk_scan_pq(sc, sv, qsteps, packed, rnpq, cent2d, r2, 8)
+    index = ik.fold_index(qidx, count, nq)
+    _hold_equal("the fold pass alone", ik.ivf_fold(states, sv, qidx, nq, index),
+                ik.ivf_chunk_scan_pq_fold(sc, sv, qidx, qsteps, packed, rnpq, cent2d, r2, 8, nq))
+    t_fold = cuda_time(lambda: ik.ivf_fold(states, sv, qidx, nq, index), 3)
+    t_index = cuda_time(lambda: ik.ivf_fold(states, sv, qidx, nq), 3)
+    fb = bound(visits * ik.QTK * 4 * ik.KP * 4 + rows_out * 2 * ik.FS * ik.KP * 4, 0.0,
+               INT8_OPS_S)
+    log(f"[kernels] the fold pass alone (second pass of ivf_chunk_int8_fold and "
+        f"ivf_chunk_pq_fold), on the PQ scan's states: kernel {t_fold:.3f} ms, with its "
+        f"index sort {t_index:.3f} ms | bound {fb['bound_ms']:.3f} ms (bytes); equal to "
+        "ivf_chunk_pq_fold's accumulator")
+    del eng8, engpq, c8, rn8, packed, rnpq, states, index
     torch.cuda.empty_cache()
 
 

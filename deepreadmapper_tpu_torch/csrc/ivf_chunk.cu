@@ -18,10 +18,12 @@
 // a visit's best then second-best into the FS ascending slots with a strict
 // '<', visits in ascending visit id.
 //
-// What bounds it on an H100: device memory.  A chunk step reads 2048 rows
-// x (128 B + 4 B norm) and does 32 x 2048 x 128 x 2 int8 operations, ~62
-// operations per byte, far below the card's ~590 int8 operations per byte
-// of bandwidth: the int8 scan has to stream bytes, not add math.
+// What bounds it on an H100: device memory.  An int8 chunk step reads 2048
+// rows x (128 B + 4 B norm) and does 32 x 2048 x 128 x 2 int8 operations,
+// ~62 operations per byte, far below the card's ~590 int8 operations per
+// byte of bandwidth: the int8 scan has to stream bytes, not add math.  A PQ
+// row is 8 B of codes at m = 8, so there the 64 KB state a visit writes
+// leads the bytes, and the rebuild and the products the work.
 //
 // Design: the TPU runs one grid step per (visit, chunk) and carries the
 // visit's state across steps in VMEM scratch, folding into a VMEM-resident
@@ -30,27 +32,30 @@
 // sequential grid becomes a loop, so a visit's steps are serial: the
 // engine cuts the plan's padding steps, all of one pad visit over the
 // empty dump chunk, before it launches).
-//  - The int8 scan (ivf_chunk_int8): a chunk step is 16 slabs of KP = 128
-//    rows, and slab row p is lane window p.  The slabs of all the visit's
-//    steps arrive in order by cp.async (rows at a 144-byte pitch, with
-//    their 128 norms) into a ring of four slabs, three ahead of the one
-//    being scored, one barrier a slab.  Warp w owns slab rows 16w .. 16w+15
-//    (one m16 tile) for all 32 queries (four n8 tiles): per slab 4 k32 steps
-//    x 4 n-tiles = 16 int8 mma.sync m16n8k32, A fragments by ldmatrix, the
+//  - Both scans: a chunk step is 16 slabs of KP = 128 rows, and slab row p
+//    is lane window p.  Each slab is staged in shared memory at a 144-byte
+//    pitch, one barrier a slab.  Warp w owns slab rows 16w .. 16w+15 (one
+//    m16 tile) for all 32 queries (four n8 tiles): per slab 4 k32 steps x 4
+//    n-tiles = 16 int8 mma.sync m16n8k32, A fragments by ldmatrix, the
 //    visit's B fragments staged once in shared memory in fragment order.  A
 //    thread's 16 accumulators map to the same (lane window, query) pairs in
 //    every slab, so its best / second-best ladders live in registers and see
 //    their rows in ascending order: the strict '<' gives the TPU's tie rule
 //    with no cross-thread merge.  The common ladder update is one compare
 //    against the second-best.  At the visit's end the 64 KB state goes out
-//    through a shared-memory transpose (reusing the ring) as 16-byte stores.
-//  - The PQ scans: thread (lane, group) owns lane window `lane` for the
-//    group's QPT queries and scans rows lane, lane + KP, ... of each chunk
-//    in ascending order.  Each row is rebuilt from its byte-packed codes
-//    through the int8 codebook staged in shared memory (ksub x 128 B) into
-//    registers (the next one is prefetched) and scored with __dp4a against
-//    the visit's queries, read from shared memory as warp-wide broadcasts;
-//    the 32 x KP x 4 state lives in registers (QPT x 4 per thread).
+//    through a shared-memory transpose (over the idle staging) as 16-byte
+//    stores.  These parts are the device functions below.
+//  - The int8 scan (ivf_chunk_int8) copies its rows: the slabs of all the
+//    visit's steps arrive in order by cp.async (rows with their 128 norms)
+//    into a ring of four slabs, three ahead of the one being scored.
+//  - The PQ scan (ivf_chunk_pq) rebuilds them: the int8 codebook (ksub x
+//    128 B) is staged in shared memory once a visit; each slab's codes
+//    (ceil(m/4) planes x 512 B) and its 128 norms arrive by cp.async in a
+//    ring of four, crossing step boundaries.  Two threads rebuild each slab
+//    row (64 B each, as 16-byte shared stores) into a double-buffered staged
+//    slab: the rebuild of slab i+1 and the products of slab i sit between
+//    the same two barriers.  The norms of the rebuilt rows come in with the
+//    codes (rn), so there is no norm pass.
 //  - The fold runs as a second kernel over the packed per-visit states:
 //    thread (query, lane) walks the query's visit rows in ascending visit
 //    id (an index the wrapper sorts) and inserts.  A single-pass fold that
@@ -60,156 +65,40 @@
 
 namespace {
 
-using winmin::dot16;
+using namespace winmin;
 
 constexpr int QTK = 32;               // queries per visit
 constexpr int KP = 128;               // lane windows per visit
 constexpr int CHK = 2048;             // rows per chunk
 constexpr int FS = 4;                 // fold slots per window
-constexpr int V = winmin::V;          // int4 per 128-byte row
-constexpr int QG = 2;                 // query groups per block
-constexpr int QPT = QTK / QG;         // queries per thread
-constexpr int THREADS = KP * QG;      // one visit per block
 constexpr int FOLD_Q = 2;             // queries per fold block
-constexpr int ROWS_PER_STEP = CHK / KP;
-constexpr float BIG = winmin::BIG;
-
-// Rows of the PQ layout: packed [n_chunks][MP][CHK] int32, code j in byte
-// j % 4 of word j / 4; cb is the int8 codebook [M * ksub][128 / M] staged
-// in shared memory, as 32-bit words.
-template <int M>
-struct PqRows {
-  static constexpr int MP = (M + 3) / 4;
-  static constexpr int DW = 32 / M;   // codebook words per subspace entry
-  const int* packed;
-  const int* cb;
-  int ksub;
-  __device__ __forceinline__ void load(int chunk, int off, int4 (&r)[V]) const {
-    const int* base = packed + (size_t)chunk * MP * CHK + off;
-    int words[MP];
-#pragma unroll
-    for (int p = 0; p < MP; ++p) words[p] = __ldg(base + (size_t)p * CHK);
-    int w[32];
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const int code = (words[j / 4] >> (8 * (j % 4))) & 255;
-      const int* src = cb + (j * ksub + code) * DW;
-#pragma unroll
-      for (int u = 0; u < DW; ++u) w[j * DW + u] = src[u];
-    }
-#pragma unroll
-    for (int c = 0; c < V; ++c) r[c] = make_int4(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
-  }
-};
-
-struct State {
-  float b1[QPT], b2[QPT];
-  int a1[QPT], a2[QPT];
-};
-
-template <class Rows>
-__device__ __forceinline__ void fetch(const Rows& rows, const int* step_chunk, int first,
-                                      const float* rn, int lane, int it, int4 (&r)[V],
-                                      float& rv, int& cand) {
-  const int chunk = __ldg(step_chunk + first + it / ROWS_PER_STEP);
-  const int off = (it % ROWS_PER_STEP) * KP + lane;
-  rows.load(chunk, off, r);
-  rv = __ldg(rn + (size_t)chunk * CHK + off);
-  cand = chunk * CHK + off;
-}
-
-// The visit's scan: rows lane, lane + KP, ... of each step's chunk, steps in
-// order, each scored against this thread's QPT queries and folded into the
-// best / second-best ladder.
-template <class Rows>
-__device__ __forceinline__ void scan_visit(const Rows& rows, const int* step_chunk,
-                                           int first, int count, const float* rn,
-                                           const int4* qs, float ratio2, State& st) {
-  const int lane = threadIdx.x % KP;
-  const int q0 = (threadIdx.x / KP) * QPT;
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    st.b1[j] = st.b2[j] = BIG;
-    st.a1[j] = st.a2[j] = 0;
-  }
-  const int total = count * ROWS_PER_STEP;
-  if (total <= 0) return;
-  int4 cur[V];
-  float rcur;
-  int ccur;
-  fetch(rows, step_chunk, first, rn, lane, 0, cur, rcur, ccur);
-  for (int it = 0; it < total; ++it) {
-    int4 nxt[V];
-    float rnx = 0.f;
-    int cnx = 0;
-    if (it + 1 < total) fetch(rows, step_chunk, first, rn, lane, it + 1, nxt, rnx, cnx);
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const int4* q = qs + (q0 + j) * V;
-      int acc = 0;
-#pragma unroll
-      for (int c = 0; c < V; ++c) acc = dot16(cur[c], q[c], acc);
-      const float s = __fmaf_rn(-ratio2, (float)acc, rcur);
-      if (s < st.b1[j]) {
-        st.b2[j] = st.b1[j];
-        st.a2[j] = st.a1[j];
-        st.b1[j] = s;
-        st.a1[j] = ccur;
-      } else if (s < st.b2[j]) {
-        st.b2[j] = s;
-        st.a2[j] = ccur;
-      }
-    }
-    if (it + 1 < total) {
-#pragma unroll
-      for (int c = 0; c < V; ++c) cur[c] = nxt[c];
-      rcur = rnx;
-      ccur = cnx;
-    }
-  }
-}
-
-// The visit's QTK query rows into shared memory.
-__device__ __forceinline__ void stage_queries(const int8_t* qsteps, int visit, int4* qs) {
-  const int4* src = reinterpret_cast<const int4*>(qsteps) + (size_t)visit * QTK * V;
-  for (int i = threadIdx.x; i < QTK * V; i += THREADS) qs[i] = src[i];
-}
-
-// Packed per-visit block [QTK][4 KP]: vals | vals2 | args | args2.
-__device__ __forceinline__ void store_state(float* out, int visit, const State& st) {
-  const int lane = threadIdx.x % KP;
-  const int q0 = (threadIdx.x / KP) * QPT;
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    float* p = out + ((size_t)visit * QTK + q0 + j) * 4 * KP;
-    p[lane] = st.b1[j];
-    p[KP + lane] = st.b2[j];
-    p[2 * KP + lane] = __int_as_float(st.a1[j]);
-    p[3 * KP + lane] = __int_as_float(st.a2[j]);
-  }
-}
-
-// The int8 visit scan on mma.sync (see the design above).
-namespace mm {
-
-using namespace winmin;
 
 constexpr int WARPS = KP / 16;            // one m16 tile of lane windows a warp
 constexpr int THREADS = 32 * WARPS;
 constexpr int NT = QTK / 8;               // n8 tiles: all the visit's queries
 constexpr int KS = D / 32;                // k32 steps of a row
 constexpr int SLABS = CHK / KP;           // slabs a chunk step
-constexpr int NBUF = 4;                   // ring of slabs: 3 in flight
+constexpr int NBUF = 4;                   // ring of slabs (int8) or codes (PQ): 3 in flight
 constexpr int PITCH = D + 16;             // staged row pitch, bytes
 constexpr int SLAB_BYTES = KP * PITCH;
-constexpr int RING_BYTES = NBUF * SLAB_BYTES;
 constexpr int RN_BYTES = NBUF * KP * 4;
 constexpr int BQ_BYTES = NT * KS * 32 * 8;  // [nt][kk][lane] (b0, b1)
 constexpr int STG_PITCH = 4 * KP + 4;     // floats a query row of the staged state
-constexpr int SMEM = RING_BYTES + RN_BYTES + BQ_BYTES;
+constexpr int STG_BYTES = QTK * STG_PITCH * 4;
 constexpr int NP = 4 * NT;                // (lane window, query) pairs a thread
-static_assert(KP * D / 16 % THREADS == 0, "whole 16-byte copies a thread");
-static_assert(QTK * STG_PITCH * 4 <= RING_BYTES, "the state transpose fits the ring");
+
+// pair j = (2 nt + e) * 2 + h: lane window 16 warp + g + 8h, query 8 nt + 2t + e
+struct Ladders {
+  float b1[NP], b2[NP];
+  int a1[NP], a2[NP];
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      b1[j] = b2[j] = BIG;
+      a1[j] = a2[j] = 0;
+    }
+  }
+};
 
 // Best / second-best ladder of one pair: strict '<', earlier rows win ties.
 __device__ __forceinline__ void ladder(float s, int cand, float& b1, int& a1, float& b2,
@@ -227,6 +116,85 @@ __device__ __forceinline__ void ladder(float s, int cand, float& b1, int& a1, fl
   }
 }
 
+// The visit's queries as B fragments into bqs [NT][KS][32]: query nt*8 + g,
+// bytes 32kk + 4t and 32kk + 16 + 4t.
+__device__ __forceinline__ void stage_queries(const int8_t* qsteps, int visit, uint2* bqs) {
+  const int* qv = reinterpret_cast<const int*>(qsteps + (size_t)visit * QTK * D);
+  for (int e = threadIdx.x; e < NT * KS * 32; e += THREADS) {
+    const int l = e & 31, nt = (e >> 5) / KS, kk = (e >> 5) % KS;
+    const int* qrow = qv + (nt * 8 + (l >> 2)) * (D / 4);
+    bqs[e] = make_uint2(qrow[8 * kk + (l & 3)], qrow[8 * kk + 4 + (l & 3)]);
+  }
+}
+
+// Score this warp's 16 rows of a staged slab (a_s: the shared address of
+// this lane's ldmatrix row; rns: the norms of the warp's rows; cand_of():
+// the id of the warp's row g) against the visit's queries, into the ladders.
+// The id is read after the products: read before them, it cost the int8
+// scan 1-4% on an H100.
+template <class Cand>
+__device__ __forceinline__ void scan_slab(unsigned a_s, const uint2* bqs, const float* rns,
+                                          Cand cand_of, float ratio2, int lane, Ladders& L) {
+  const int g = lane >> 2;
+  int acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    unsigned a[4];
+    ldmatrix_x4(a, a_s + 32 * kk);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint2 b = bqs[(nt * KS + kk) * 32 + lane];
+      mma_s8(acc[nt], a, b.x, b.y);
+    }
+  }
+  const float rn0 = rns[g], rn1 = rns[g + 8];
+  const int cand = cand_of();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // query 8 nt + 2t + e: row g, then row g + 8
+      const int j = (2 * nt + e) * 2;
+      ladder(score(acc[nt][e], rn0, ratio2), cand, L.b1[j], L.a1[j], L.b2[j], L.a2[j]);
+      ladder(score(acc[nt][2 + e], rn1, ratio2), cand + 8, L.b1[j + 1], L.a1[j + 1],
+             L.b2[j + 1], L.a2[j + 1]);
+    }
+}
+
+// The packed state [QTK][vals | vals2 | args | args2] of the visit through
+// stg (STG_BYTES of idle shared memory; the caller's barrier has retired
+// every read of it).  A row pitch of 4 KP + 4 floats puts the four queries
+// of a store on distinct banks.
+__device__ __forceinline__ void store_state(const Ladders& L, float* stg, float* out,
+                                            int visit) {
+  const int lane = threadIdx.x & 31, rbase = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = (2 * nt + e) * 2 + h;
+        float* p = stg + (8 * nt + 2 * t + e) * STG_PITCH + rbase + g + 8 * h;
+        p[0] = L.b1[j];
+        p[KP] = L.b2[j];
+        p[2 * KP] = __int_as_float(L.a1[j]);
+        p[3 * KP] = __int_as_float(L.a2[j]);
+      }
+  __syncthreads();
+  float4* o = reinterpret_cast<float4*>(out + (size_t)visit * QTK * 4 * KP);
+  for (int e = threadIdx.x; e < QTK * KP; e += THREADS)
+    o[e] = *reinterpret_cast<const float4*>(stg + (e / KP) * STG_PITCH + 4 * (e % KP));
+}
+
+// The int8 visit scan: rows copied into the slab ring.
+constexpr int RING_BYTES = NBUF * SLAB_BYTES;
+constexpr int INT8_SMEM = RING_BYTES + RN_BYTES + BQ_BYTES;
+static_assert(KP * D / 16 % THREADS == 0, "whole 16-byte copies a thread");
+static_assert(STG_BYTES <= RING_BYTES, "the state transpose fits the ring");
+
 __global__ void __launch_bounds__(THREADS, 2)
 int8_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfirst,
                  const int* __restrict__ vcount, const int8_t* __restrict__ qsteps,
@@ -242,7 +210,7 @@ int8_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfi
   const int total = vcount[visit] * SLABS;  // the visit's slabs, steps in order
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2;
   const unsigned ring_s = smem_addr(ring), rns_s = smem_addr(rns);
 
   auto issue = [&](int i) {  // slab i of the visit (rows and norms) into buffer i % NBUF
@@ -261,24 +229,10 @@ int8_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfi
   };
 #pragma unroll
   for (int i = 0; i < NBUF - 1; ++i) issue(i);
+  stage_queries(qsteps, visit, bqs);
 
-  {  // the visit's queries as B fragments: query nt*8 + g, bytes 32kk + 4t, 32kk + 16 + 4t
-    const int* qv = reinterpret_cast<const int*>(qsteps + (size_t)visit * QTK * D);
-    for (int e = tid; e < NT * KS * 32; e += THREADS) {
-      const int l = e & 31, nt = (e >> 5) / KS, kk = (e >> 5) % KS;
-      const int* qrow = qv + (nt * 8 + (l >> 2)) * (D / 4);
-      bqs[e] = make_uint2(qrow[8 * kk + (l & 3)], qrow[8 * kk + 4 + (l & 3)]);
-    }
-  }
-
-  // pair j = (2 nt + e) * 2 + h: lane window 16 warp + g + 8h, query 8 nt + 2t + e
-  float b1[NP], b2[NP];
-  int a1[NP], a2[NP];
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    b1[j] = b2[j] = BIG;
-    a1[j] = a2[j] = 0;
-  }
+  Ladders L;
+  L.reset();
   const int rbase = warp * 16;
   const unsigned lm_off = ldmatrix_offset(lane, PITCH) + rbase * PITCH;
 
@@ -289,78 +243,158 @@ int8_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfi
     __syncthreads();
     issue(i + NBUF - 1);
     const int buf = i % NBUF;
-    int acc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      unsigned a[4];
-      ldmatrix_x4(a, ring_s + buf * SLAB_BYTES + lm_off + 32 * kk);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint2 b = bqs[(nt * KS + kk) * 32 + lane];
-        mma_s8(acc[nt], a, b.x, b.y);
-      }
-    }
-    const float rn0 = rns[buf * KP + rbase + g], rn1 = rns[buf * KP + rbase + g + 8];
-    const int cand = __ldg(step_chunk + first + i / SLABS) * CHK + (i % SLABS) * KP + rbase + g;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {  // query 8 nt + 2t + e: row g, then row g + 8
-        const int j = (2 * nt + e) * 2;
-        ladder(score(acc[nt][e], rn0, ratio2), cand, b1[j], a1[j], b2[j], a2[j]);
-        ladder(score(acc[nt][2 + e], rn1, ratio2), cand + 8, b1[j + 1], a1[j + 1], b2[j + 1],
-               a2[j + 1]);
-      }
+    const auto cand_of = [&] {
+      return __ldg(step_chunk + first + i / SLABS) * CHK + (i % SLABS) * KP + rbase + g;
+    };
+    scan_slab(ring_s + buf * SLAB_BYTES + lm_off, bqs, rns + buf * KP + rbase, cand_of, ratio2,
+              lane, L);
   }
-
-  // The packed state [QTK][vals | vals2 | args | args2] through shared
-  // memory (the ring is free: every copy landed and every slab was read).
-  // A row pitch of 4 KP + 4 floats puts the four queries of a store on
-  // distinct banks.
+  // the ring is free: every copy landed and every slab was read
   cp_async_wait<0>();
   __syncthreads();
-  float* stg = reinterpret_cast<float*>(ring);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = (2 * nt + e) * 2 + h;
-        float* p = stg + (8 * nt + 2 * t + e) * STG_PITCH + rbase + g + 8 * h;
-        p[0] = b1[j];
-        p[KP] = b2[j];
-        p[2 * KP] = __int_as_float(a1[j]);
-        p[3 * KP] = __int_as_float(a2[j]);
-      }
-  __syncthreads();
-  float4* o = reinterpret_cast<float4*>(out + (size_t)visit * QTK * 4 * KP);
-  for (int e = tid; e < QTK * KP; e += THREADS)
-    o[e] = *reinterpret_cast<const float4*>(stg + (e / KP) * STG_PITCH + 4 * (e % KP));
+  store_state(L, reinterpret_cast<float*>(ring), out, visit);
 }
 
-}  // namespace mm
+// The PQ visit scan: rows rebuilt from codes through the staged codebook.
+// packed [n_chunks][MP][CHK] int32, code j in byte j % 4 of word j / 4;
+// cent is the int8 codebook [M * ksub][128 / M].
+constexpr int PQ_FIXED = 2 * SLAB_BYTES + BQ_BYTES + RN_BYTES;  // then codes, codebook
+static_assert(THREADS == 2 * KP, "two threads rebuild each slab row");
 
 template <int M>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int pq_codes_bytes() {
+  return NBUF * ((M + 3) / 4) * KP * 4;
+}
+
+template <int M>
+__global__ void __launch_bounds__(THREADS, 2)
 pq_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfirst,
                const int* __restrict__ vcount, const int8_t* __restrict__ qsteps,
                const int* __restrict__ packed, const float* __restrict__ rn,
                const int8_t* __restrict__ cent, float* __restrict__ out, float ratio2,
                int ksub) {
-  __shared__ int4 qs[QTK * V];
-  extern __shared__ int cb[];  // [M * ksub][32 / M] words
+  constexpr int MP = (M + 3) / 4;     // code words (planes) a row
+  constexpr int DW = 32 / M;          // codebook words an entry
+  constexpr int JH = M / 2;           // subspaces a half row
+  static_assert(MP * KP / 4 <= THREADS, "one codes copy a thread and slab");
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* slabs = smem;                                         // [2][KP][PITCH]
+  uint2* bqs = reinterpret_cast<uint2*>(smem + 2 * SLAB_BYTES);         // [NT][KS][32]
+  float* rns = reinterpret_cast<float*>(smem + 2 * SLAB_BYTES + BQ_BYTES);  // [NBUF][KP]
+  int* cds = reinterpret_cast<int*>(smem + PQ_FIXED);                  // [NBUF][MP][KP]
+  int* cb = reinterpret_cast<int*>(smem + PQ_FIXED + pq_codes_bytes<M>());  // [M ksub][DW]
+
   const int visit = blockIdx.x;
-  stage_queries(qsteps, visit, qs);
-  const int* cent_w = reinterpret_cast<const int*>(cent);
-  for (int i = threadIdx.x; i < ksub * (winmin::D / 4); i += THREADS) cb[i] = cent_w[i];
-  __syncthreads();
-  State st;
-  const PqRows<M> rows{packed, cb, ksub};
-  scan_visit(rows, step_chunk, vfirst[visit], vcount[visit], rn, qs, ratio2, st);
-  store_state(out, visit, st);
+  const int first = vfirst[visit];
+  const int total = vcount[visit] * SLABS;  // the visit's slabs, steps in order
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2;
+  const unsigned slabs_s = smem_addr(slabs), rns_s = smem_addr(rns), cds_s = smem_addr(cds);
+
+  auto issue = [&](int i) {  // slab i's codes and norms into slot i % NBUF
+    if (i < total) {
+      const int chunk = __ldg(step_chunk + first + i / SLABS);
+      const int off = (i % SLABS) * KP, slot = i % NBUF;
+      if (tid < MP * KP / 4) {
+        const int p = tid / (KP / 4), c = tid % (KP / 4);
+        cp_async16(cds_s + ((slot * MP + p) * KP + 4 * c) * 4,
+                   packed + ((size_t)chunk * MP + p) * CHK + off + 4 * c);
+      }
+      if (tid >= THREADS - KP / 4) {
+        const int c = tid - (THREADS - KP / 4);
+        cp_async16(rns_s + (slot * KP + 4 * c) * 4, rn + (size_t)chunk * CHK + off + 4 * c);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Rebuild slab i into buffer i & 1: thread tid writes bytes 64h .. 64h+63
+  // (subspaces JH h .. JH h + JH - 1) of row r as four 16-byte stores.
+  const int r = tid >> 1, h = tid & 1;
+  const int* cbh = cb + h * JH * ksub * DW;
+  auto rebuild = [&](int i) {
+    const int* rc = cds + (i % NBUF) * MP * KP + r;
+    unsigned words[(JH + 3) / 4];  // the half's codes, subspace jj in byte jj % 4 of word jj / 4
+    if constexpr (M == 4) {
+      words[0] = static_cast<unsigned>(rc[0]) >> (16 * h);
+    } else {
+#pragma unroll
+      for (int u = 0; u < (JH + 3) / 4; ++u) words[u] = rc[(h * (JH / 4) + u) * KP];
+    }
+    auto entry = [&](int jj) {  // the half's subspace jj: its entry's first word
+      return cbh + (jj * ksub + ((words[jj / 4] >> (8 * (jj % 4))) & 255)) * DW;
+    };
+    int4* dst = reinterpret_cast<int4*>(slabs + ((i & 1) * KP + r) * PITCH + 64 * h);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int4 v;
+      if constexpr (DW >= 4) {  // the piece lies in one entry
+        v = *reinterpret_cast<const int4*>(entry(4 * c / DW) + (4 * c) % DW);
+      } else if constexpr (DW == 2) {
+        const int2 lo = *reinterpret_cast<const int2*>(entry(2 * c));
+        const int2 hi = *reinterpret_cast<const int2*>(entry(2 * c + 1));
+        v = make_int4(lo.x, lo.y, hi.x, hi.y);
+      } else {
+        v = make_int4(*entry(4 * c), *entry(4 * c + 1), *entry(4 * c + 2), *entry(4 * c + 3));
+      }
+      dst[c] = v;
+    }
+  };
+
+  Ladders L;
+  L.reset();
+  if (total > 0) {
+    {  // the codebook, in the first slab's copy group
+      const unsigned cb_s = smem_addr(cb);
+      for (int e = tid; e < ksub * (D / 16); e += THREADS) cp_async16(cb_s + 16 * e, cent + 16 * e);
+    }
+#pragma unroll
+    for (int i = 0; i < NBUF - 1; ++i) issue(i);
+    stage_queries(qsteps, visit, bqs);
+    cp_async_wait<NBUF - 2>();
+    __syncthreads();  // the codebook and slab 0's codes have arrived
+    rebuild(0);
+
+    const int rbase = warp * 16;
+    const unsigned lm_off = ldmatrix_offset(lane, PITCH) + rbase * PITCH;
+    for (int i = 0; i < total; ++i) {
+      cp_async_wait<NBUF - 3>();
+      // slab i is rebuilt, slab i+1's codes and slab i's norms have
+      // arrived, and every read of buffer (i+1) & 1 and of slot (i-1) % NBUF
+      // is done
+      __syncthreads();
+      issue(i + NBUF - 1);
+      if (i + 1 < total) rebuild(i + 1);
+      const auto cand_of = [&] {
+        return __ldg(step_chunk + first + i / SLABS) * CHK + (i % SLABS) * KP + rbase + g;
+      };
+      scan_slab(slabs_s + (i & 1) * SLAB_BYTES + lm_off, bqs, rns + (i % NBUF) * KP + rbase,
+                cand_of, ratio2, lane, L);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every read of the staging is done
+  store_state(L, reinterpret_cast<float*>(smem), out, visit);
+}
+
+template <int M>
+size_t pq_smem(int ksub) {
+  const size_t scan = PQ_FIXED + pq_codes_bytes<M>() + (size_t)ksub * D;
+  return scan > STG_BYTES ? scan : STG_BYTES;
+}
+static_assert(PQ_FIXED + pq_codes_bytes<32>() + 256 * D <= 227 * 1024, "shared memory");
+
+template <int M>
+int launch_pq_m(const int* sc, const int* vf, const int* vc, const int8_t* q, const int* pk,
+                const float* r, const int8_t* c, float* o, int n_visits, float ratio2,
+                int ksub, cudaStream_t s) {
+  const size_t smem = pq_smem<M>(ksub);
+  cudaError_t err = cudaFuncSetAttribute(
+      pq_scan_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pq_scan_kernel<M><<<n_visits, THREADS, smem, s>>>(sc, vf, vc, q, pk, r, c, o, ratio2, ksub);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ void insert_sorted(float (&sv)[FS], int (&si)[FS], float cv, int ci) {
@@ -415,7 +449,6 @@ int launch_pq(const void* step_chunk, const void* vfirst, const void* vcount,
               const void* qsteps, const void* packed, const void* rn, const void* cent,
               void* out, int n_visits, float ratio2, int m, int ksub, cudaStream_t s) {
   if (n_visits <= 0) return 0;
-  const size_t smem = (size_t)ksub * winmin::D;  // <= 32 KB: no opt-in needed
   const auto sc = static_cast<const int*>(step_chunk);
   const auto vf = static_cast<const int*>(vfirst);
   const auto vc = static_cast<const int*>(vcount);
@@ -425,13 +458,12 @@ int launch_pq(const void* step_chunk, const void* vfirst, const void* vcount,
   const auto c = static_cast<const int8_t*>(cent);
   const auto o = static_cast<float*>(out);
   switch (m) {
-    case 4: pq_scan_kernel<4><<<n_visits, THREADS, smem, s>>>(sc, vf, vc, q, pk, r, c, o, ratio2, ksub); break;
-    case 8: pq_scan_kernel<8><<<n_visits, THREADS, smem, s>>>(sc, vf, vc, q, pk, r, c, o, ratio2, ksub); break;
-    case 16: pq_scan_kernel<16><<<n_visits, THREADS, smem, s>>>(sc, vf, vc, q, pk, r, c, o, ratio2, ksub); break;
-    case 32: pq_scan_kernel<32><<<n_visits, THREADS, smem, s>>>(sc, vf, vc, q, pk, r, c, o, ratio2, ksub); break;
+    case 4: return launch_pq_m<4>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
+    case 8: return launch_pq_m<8>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
+    case 16: return launch_pq_m<16>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
+    case 32: return launch_pq_m<32>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_fold(const void* states, const void* order, const void* qstart, const void* qcount,
@@ -453,11 +485,11 @@ extern "C" int ivf_chunk_int8(const void* step_chunk, const void* vfirst, const 
                               const void* qsteps, const void* codes, const void* rn,
                               void* out, int n_visits, float ratio2, void* stream) {
   if (n_visits <= 0) return 0;
-  static_assert(mm::SMEM <= 227 * 1024, "shared memory");
+  static_assert(INT8_SMEM <= 227 * 1024, "shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      mm::int8_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, mm::SMEM);
+      int8_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, INT8_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mm::int8_scan_kernel<<<n_visits, mm::THREADS, mm::SMEM, static_cast<cudaStream_t>(stream)>>>(
+  int8_scan_kernel<<<n_visits, THREADS, INT8_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(step_chunk), static_cast<const int*>(vfirst),
       static_cast<const int*>(vcount), static_cast<const int8_t*>(qsteps),
       static_cast<const int8_t*>(codes), static_cast<const float*>(rn),
@@ -482,7 +514,8 @@ extern "C" int ivf_chunk_int8_fold(const void* step_chunk, const void* vfirst,
 }
 
 // packed [n_chunks, ceil(m / 4), 2048] int32, cent [m * ksub, 128 / m] int8
-// (m in 4, 8, 16, 32; ksub <= 256); the rest as ivf_chunk_int8.
+// (m in 4, 8, 16, 32; ksub <= 256), packed, rn and cent 16-byte aligned;
+// the rest as ivf_chunk_int8.
 extern "C" int ivf_chunk_pq(const void* step_chunk, const void* vfirst, const void* vcount,
                             const void* qsteps, const void* packed, const void* rn,
                             const void* cent, void* out, int n_visits, float ratio2, int m,
@@ -501,6 +534,14 @@ extern "C" int ivf_chunk_pq_fold(const void* step_chunk, const void* vfirst,
                             n_visits, ratio2, m, ksub, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   return launch_fold(scratch, order, qstart, qcount, facc, nq, rows,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The fold pass alone over packed states [V, 32, 512] (as the fold scans
+// run it after their scan).
+extern "C" int ivf_fold(const void* states, const void* order, const void* qstart,
+                        const void* qcount, void* facc, int nq, int rows, void* stream) {
+  return launch_fold(states, order, qstart, qcount, facc, nq, rows,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -155,6 +155,12 @@ IVF_CHUNK_PQ = CudaKernel("ivf_chunk_pq", [_P] * 8 + [_I, _F, _I, _I, _P], "ivf_
 IVF_CHUNK_PQ_FOLD = CudaKernel("ivf_chunk_pq_fold",
                                [_P] * 12 + [_I] * 3 + [_F, _I, _I, _P], "ivf_chunk")
 
+# ivf_fold(states, order, qstart, qcount, facc, nq, rows, stream): the fold
+# pass of the two fold scans alone, for timing it; not a kernel of its own
+# (the main path runs it inside ivf_chunk_int8_fold / ivf_chunk_pq_fold), so
+# not in ALL
+IVF_FOLD = CudaKernel("ivf_fold", [_P] * 5 + [_I] * 2 + [_P], "ivf_chunk")
+
 ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, PQ_WINMIN, IVF_CHUNK_INT8,
        IVF_CHUNK_INT8_FOLD, IVF_CHUNK_PQ, IVF_CHUNK_PQ_FOLD, GRU_BWD)
 

@@ -327,6 +327,12 @@ def _check_pq(packedC, cent2d, m: int):
     return ksub
 
 
+def _pq_aligned(packedC, rnC, cent2d):
+    """The PQ scans' codes, norms and codebook, contiguous and 16-byte
+    aligned: the kernel copies them in 16-byte pieces."""
+    return tuple(aligned16(t.contiguous()) for t in (packedC, rnC, cent2d))
+
+
 def _launch_args(step_chunk, step_visit, qsteps):
     """Contiguous plan tensors and the per-visit step ranges."""
     first, count = visit_steps(step_visit, qsteps.shape[0])
@@ -412,12 +418,12 @@ def ivf_chunk_scan_pq(step_chunk, step_visit, qsteps, packedC, rnC, cent2d,
     out = torch.empty((qs.shape[0], QTK, 4 * KP), dtype=torch.float32, device=dev)
     if qs.shape[0] == 0:
         return out
+    packedC, rnC, cent2d = _pq_aligned(packedC, rnC, cent2d)
     with torch.cuda.device(dev):
         kernels.IVF_CHUNK_PQ.launch(
             sc.data_ptr(), first.data_ptr(), count.data_ptr(), qs.data_ptr(),
-            packedC.contiguous().data_ptr(), rnC.contiguous().data_ptr(),
-            cent2d.contiguous().data_ptr(), out.data_ptr(), qs.shape[0],
-            float(ratio2), m, ksub, _stream(dev))
+            packedC.data_ptr(), rnC.data_ptr(), cent2d.data_ptr(), out.data_ptr(),
+            qs.shape[0], float(ratio2), m, ksub, _stream(dev))
     return out
 
 
@@ -434,9 +440,38 @@ def ivf_chunk_scan_pq_fold(step_chunk, step_visit, qidx, qsteps, packedC, rnC, c
         return ivf_chunk_scan_pq_fold_reference(step_chunk, step_visit, qidx, qsteps,
                                                 packedC, rnC, cent2d, ratio2, m, nq, chk)
     sc, first, count, qs = _launch_args(step_chunk, step_visit, qsteps)
+    packedC, rnC, cent2d = _pq_aligned(packedC, rnC, cent2d)
     return _fold_launch(
         kernels.IVF_CHUNK_PQ_FOLD, dev, nq, qidx, count,
         (sc.data_ptr(), first.data_ptr(), count.data_ptr(), qs.data_ptr(),
-         packedC.contiguous().data_ptr(), rnC.contiguous().data_ptr(),
-         cent2d.contiguous().data_ptr()),
+         packedC.data_ptr(), rnC.data_ptr(), cent2d.data_ptr()),
         (float(ratio2), m, ksub))
+
+
+def ivf_fold(states, step_visit, qidx, nq: int, index=None):
+    """The fold pass alone over a packed scan's states [V, QTK, 4*KP]:
+    csrc/ivf_chunk.cu's second pass on CUDA tensors, the plain fold on CPU
+    tensors.  The fold scans run it after their scan; this entry times it
+    alone.  index: fold_index(qidx, step counts, nq) when the caller has
+    it (then only the kernel runs on the card).  -> accumulator
+    [fold_rows(nq), 2*FS*KP] fp32."""
+    v = states.shape[0]
+    if states.dtype != torch.float32 or states.shape[1:] != (QTK, 4 * KP):
+        raise ValueError(f"states must be fp32 [V, {QTK}, {4 * KP}]")
+    if qidx.dtype != torch.int32 or qidx.shape != (v, QTK):
+        raise ValueError(f"qidx must be int32 [{v}, {QTK}]")
+    dev = _device_of(states, step_visit, qidx)
+    if dev.type == "cpu":
+        vals, args, vals2, args2 = unpack_scan(states)
+        return _fold(torch.stack([vals, vals2], dim=3), torch.stack([args, args2], dim=3),
+                     visit_steps(step_visit, v)[1], qidx, nq)
+    if index is None:
+        index = fold_index(qidx, visit_steps(step_visit, v)[1], nq)
+    order, start, cnt = index
+    rows = fold_rows(nq)
+    states = states.contiguous()
+    facc = torch.empty((rows, 2 * FS * KP), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.IVF_FOLD.launch(states.data_ptr(), order.data_ptr(), start.data_ptr(),
+                                cnt.data_ptr(), facc.data_ptr(), nq, rows, _stream(dev))
+    return facc

@@ -1,4 +1,4 @@
-"""Time the four IVF chunk scans (csrc/ivf_chunk.cu) on the card.
+"""Time the four IVF chunk scans (csrc/ivf_chunk.cu) and their fold pass on the card.
 
 Imports chip_smoke.py from a checkout (this one unless --root names
 another) and makes phase 3's IVF inputs with it: the chunked layout of
@@ -8,20 +8,33 @@ each kernel against its plain version once (packed states of every
 referenced visit, fold rows [0, nq), bit for bit), and prints CUDA-event
 milliseconds per launch (each rep the mean of 3 launches after a warm-up),
 the bound (each distinct chunk of the plan read once), the ptxas register
-lines of the build and the card's name and power limit.  To compare two
-checkouts on one card, time them in one session in the order parent,
-change, change, parent:
+lines of the build and the card's name and power limit.  ``ivf_fold`` is
+the fold pass of the two fold scans alone over the PQ scan's packed
+states, held to the plain fold scan: the kernel alone (its index sorted
+once beforehand), and ``ivf_fold+index`` the same with the index sort, as
+the fold scans run it.  A checkout without ``ops.ivf_kernel.ivf_fold``
+takes ``--kernels`` naming the four scans.
+
+To compare two checkouts on one card, either time them in one session in
+the order parent, change, change, parent (``--root``), or pass
+``--against DIR``: it builds that checkout's ``csrc/ivf_chunk.cu`` (same C
+entries) and times its four scans in turns with this checkout's, through
+this checkout's wrappers, each rep this, that, that, this, so that drift
+of the card's clock falls on both alike:
 
     python scripts/time_ivf_chunk.py [--root DIR] [--ratio 1.3] [--reps 5]
-                                     [--kernels ivf_chunk_int8 ...]
+                                     [--kernels ivf_chunk_int8 ...] [--against DIR]
 
 Prints one JSON object: {"root", "card", "plan": {...}, "ptxas": [...],
-"equal": {kernel: bool}, "ms": {kernel: [rep, ...]}, "bound_ms": {kernel: ms}}.
+"equal": {kernel: bool}, "ms": {kernel: [rep, ...]}, "bound_ms": {kernel: ms}},
+with --against also "against": {"root", "equal", "ms"}.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import hashlib
 import importlib
 import json
 import os
@@ -30,7 +43,31 @@ import sys
 
 import numpy as np
 
-NAMES = ("ivf_chunk_int8", "ivf_chunk_int8_fold", "ivf_chunk_pq", "ivf_chunk_pq_fold")
+NAMES = ("ivf_chunk_int8", "ivf_chunk_int8_fold", "ivf_chunk_pq", "ivf_chunk_pq_fold",
+         "ivf_fold", "ivf_fold+index")
+# scan name -> its CudaKernel in kernels.py
+ATTRS = {"ivf_chunk_int8": "IVF_CHUNK_INT8", "ivf_chunk_int8_fold": "IVF_CHUNK_INT8_FOLD",
+         "ivf_chunk_pq": "IVF_CHUNK_PQ", "ivf_chunk_pq_fold": "IVF_CHUNK_PQ_FOLD"}
+
+
+def against_kernels(kernels, root: str) -> dict:
+    """The four scans' C entries built from another checkout's
+    csrc/ivf_chunk.cu (its own headers) into this checkout's build dir."""
+    csrc = os.path.join(root, "deepreadmapper_tpu_torch", "csrc")
+    src = os.path.join(csrc, "ivf_chunk.cu")
+    h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(csrc, "*.cuh"))) + [src]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(kernels.BUILD_DIR, f"ivf_chunk-against-{h.hexdigest()[:16]}.so")
+    out = {}
+    for attr in ATTRS.values():
+        mine = getattr(kernels, attr)
+        k = kernels.CudaKernel(mine.name, mine.argtypes, mine.source_name)
+        k.source = src
+        k.so_path = lambda so=so: so
+        out[attr] = k
+    return out
 
 
 def main() -> int:
@@ -39,6 +76,7 @@ def main() -> int:
     ap.add_argument("--ratio", type=float, default=1.3)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--kernels", nargs="+", choices=NAMES, default=list(NAMES))
+    ap.add_argument("--against", help="another checkout, timed in turns with this one")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -99,9 +137,32 @@ def main() -> int:
                                                         rnpq, cent2d, r2, 8, nq),
             lambda x: x[:nq], 8 + 4, fold_bytes),
     }
+    if {"ivf_fold", "ivf_fold+index"} & set(args.kernels):
+        states = ik.ivf_chunk_scan_pq(sc, sv, qsteps, packed, rnpq, cent2d, r2, 8)
+        index = ik.fold_index(qidx, count, nq)
+        for name, idx in (("ivf_fold", index), ("ivf_fold+index", None)):
+            cases[name] = (
+                lambda idx=idx: ik.ivf_fold(states, sv, qidx, nq, idx),
+                cases["ivf_chunk_pq_fold"][1], lambda x: x[:nq], 0, state_bytes + fold_bytes)
     out = {"root": root, "card": card,
            "plan": {"rows": eng8.ntotal, "visits": visits, "steps": steps, "chunks": chunks},
            "equal": {}, "ms": {}, "bound_ms": {}}
+    other = {}
+    if args.against:
+        other = against_kernels(kernels, os.path.abspath(args.against))
+        out["against"] = {"root": os.path.abspath(args.against), "equal": {}, "ms": {}}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def rep(fn) -> float:
+        """ms a launch: the mean of 3 launches."""
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 3
+
     for name in args.kernels:
         kernel, plain, part, row_bytes, out_bytes = cases[name]
         got, want = kernel(), plain()
@@ -109,23 +170,43 @@ def main() -> int:
         out["equal"][name] = bool(torch.equal(part(got).view(torch.int32),
                                               part(want).view(torch.int32)))
         del got, want
-        # each distinct chunk read once, every chunk step's products
-        nbytes = chunks * ik.CHK * row_bytes + visits * ik.QTK * 128 + out_bytes
-        out["bound_ms"][name] = cs.bound(nbytes, 2.0 * steps * ik.QTK * ik.CHK * 128,
-                                         cs.INT8_OPS_S)["bound_ms"]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        reps = []
-        for _ in range(args.reps):
-            start.record()
-            for _ in range(3):
-                kernel()
-            end.record()
+        # each distinct chunk read once, every chunk step's products; the
+        # fold pass alone reads the packed states and writes the accumulator
+        if name.startswith("ivf_fold"):
+            out["bound_ms"][name] = cs.bound(out_bytes, 0.0, cs.INT8_OPS_S)["bound_ms"]
+        else:
+            nbytes = chunks * ik.CHK * row_bytes + visits * ik.QTK * 128 + out_bytes
+            out["bound_ms"][name] = cs.bound(nbytes, 2.0 * steps * ik.QTK * ik.CHK * 128,
+                                             cs.INT8_OPS_S)["bound_ms"]
+        if name in ATTRS and other:
+            attr = ATTRS[name]
+            mine, theirs = getattr(kernels, attr), other[attr]
+
+            def run_theirs(kernel=kernel, attr=attr, mine=mine, theirs=theirs):
+                setattr(kernels, attr, theirs)
+                try:
+                    return kernel()
+                finally:
+                    setattr(kernels, attr, mine)
+
+            got, want = run_theirs(), plain()
             torch.cuda.synchronize()
-            reps.append(start.elapsed_time(end) / 3)
-        out["ms"][name] = reps
+            out["against"]["equal"][name] = bool(torch.equal(part(got).view(torch.int32),
+                                                             part(want).view(torch.int32)))
+            del got, want
+            kernel(), run_theirs()  # warm-up
+            a, b = [], []
+            for _ in range(args.reps):
+                t = [rep(kernel), rep(run_theirs), rep(run_theirs), rep(kernel)]
+                a.append((t[0] + t[3]) / 2)
+                b.append((t[1] + t[2]) / 2)
+            out["ms"][name], out["against"]["ms"][name] = a, b
+        else:
+            kernel()  # warm-up
+            out["ms"][name] = [rep(kernel) for _ in range(args.reps)]
     log = "".join(k.build_log for k in (kernels.IVF_CHUNK_INT8, kernels.IVF_CHUNK_INT8_FOLD,
-                                        kernels.IVF_CHUNK_PQ, kernels.IVF_CHUNK_PQ_FOLD))
+                                        kernels.IVF_CHUNK_PQ, kernels.IVF_CHUNK_PQ_FOLD,
+                                        *other.values()))
     out["ptxas"] = [ln.strip() for ln in log.splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]
     print(json.dumps(out))

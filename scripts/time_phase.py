@@ -3,13 +3,16 @@
 Imports chip_smoke.py from the checkout that --root names (this one by
 default), builds its kernels and runs one phase that needs nothing from the
 others: genome (INT8FLAT build-index -> pipeline, 2 Mbp), genome_pq
-(PQFLAT -> pipeline --rerank sw, 5 Mbp) or genome_ivf (IVFINT8 at 40M rows,
-three routes), printing the phase's own lines (build and pipeline times,
-steady reads/s, search splits, gates).  For an end-to-end A/B of two
+(PQFLAT -> pipeline --rerank sw, 5 Mbp), genome_ivf (IVFINT8 at 40M rows,
+three routes) or genome_ivfpq (IVFPQ at 10M rows, three routes; it runs
+genome_pq first, whose build and search it is checked against), printing
+the phase's own lines (build and pipeline times, steady reads/s, search
+splits, gates).  For an end-to-end A/B of two
 checkouts, run them in one session in the order parent, change, change,
 parent:
 
-    python scripts/time_phase.py [--root DIR] [--phase genome|genome_pq|genome_ivf]
+    python scripts/time_phase.py [--root DIR]
+        [--phase genome|genome_pq|genome_ivf|genome_ivfpq]
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import sys
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--phase", choices=("genome", "genome_pq", "genome_ivf"),
+    ap.add_argument("--phase", choices=("genome", "genome_pq", "genome_ivf", "genome_ivfpq"),
                     default="genome_pq")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -37,7 +40,11 @@ def main() -> int:
     shutil.rmtree(cs.WORK, ignore_errors=True)
     os.makedirs(cs.WORK)
     cs.phase_build()
-    getattr(cs, "phase_" + args.phase)(collections.defaultdict(dict))
+    results = collections.defaultdict(dict)
+    if args.phase == "genome_ivfpq":
+        cs.phase_genome_ivfpq(results, cs.phase_genome_pq(results))
+    else:
+        getattr(cs, "phase_" + args.phase)(results)
     shutil.rmtree(cs.WORK, ignore_errors=True)
     return 0
 

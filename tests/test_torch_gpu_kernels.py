@@ -389,20 +389,43 @@ def test_ivf_chunk_int8_kernels_match_plain(cuda, ratio, amp, plan):
     assert torch.equal(got[:50].view(torch.int32), want[:50].view(torch.int32))
 
 
-@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8)])
-@pytest.mark.parametrize("ratio", [1.0, 1.3])
-def test_ivf_chunk_pq_kernels_match_plain(cuda, m, nbits, ratio):
+def _pq_tables(rng, m, nbits, rn, codes, cuda):
+    """Byte-packed codes [n_chunks, ceil(m/4), CHK] int32, an int8 codebook
+    [m*ksub, 128/m] and the rebuilt rows' norms (3.4e38 where rn has it);
+    codes "ties": every row one of 8 code patterns, so most lane windows'
+    best rows tie."""
     from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
 
-    rng, (sc, sv, qidx, q, _codes, rn) = _ivf_inputs(cuda, 127)
     ksub = 1 << nbits
     n_chunks = rn.shape[0]
-    packed = torch.tensor(rng.integers(-2**31, 2**31, (n_chunks, -(-m // 4), ik.CHK)),
-                          dtype=torch.int32)
-    packed = (packed & torch.tensor(int(np.uint32(0x01010101 * (ksub - 1)).view(np.int32)),
-                                    dtype=torch.int32)).to(cuda)
-    cent2d = torch.tensor(rng.integers(-127, 128, (m * ksub, 128 // m)),
-                          dtype=torch.int8).to(cuda)
+    if codes == "ties":
+        c8 = rng.integers(0, ksub, (8, m))[rng.integers(0, 8, (n_chunks, ik.CHK))]
+    else:
+        c8 = rng.integers(0, ksub, (n_chunks, ik.CHK, m))
+    words = np.zeros((n_chunks, -(-m // 4), ik.CHK), np.uint32)
+    for j in range(m):
+        words[:, j // 4] |= c8[..., j].astype(np.uint32) << np.uint32(8 * (j % 4))
+    cent = rng.integers(-127, 128, (m, ksub, 128 // m))
+    rows = np.concatenate([cent[j][c8[..., j]] for j in range(m)], axis=-1)
+    norms = (rows.astype(np.int64) ** 2).sum(-1).astype(np.float32)
+    norms[rn.cpu().numpy() == np.float32(3.4e38)] = np.float32(3.4e38)
+    return (torch.from_numpy(words.view(np.int32)).to(cuda),
+            torch.tensor(cent.reshape(m * ksub, 128 // m), dtype=torch.int8).to(cuda),
+            torch.from_numpy(norms).to(cuda))
+
+
+@pytest.mark.parametrize("plan", list(IVF_PLANS))
+@pytest.mark.parametrize("codes", ["random", "ties"])
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8), (32, 8), (32, 6)])
+@pytest.mark.parametrize("ratio", [1.0, 1.3])
+def test_ivf_chunk_pq_kernels_match_plain(cuda, m, nbits, ratio, codes, plan):
+    """Packed and fold, bit for bit against the plain versions, at every m;
+    a visit with no steps writes (3.4e38, 0) everywhere; the fold pass
+    alone over the packed states gives the fold scan's accumulator."""
+    from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
+
+    rng, (sc, sv, qidx, q, _codes, rn8) = _ivf_inputs(cuda, 127, **IVF_PLANS[plan])
+    packed, cent2d, rn = _pq_tables(rng, m, nbits, rn8, codes, cuda)
     ratio2 = 2.0 * float(np.float32(ratio))
     before = kernels.IVF_CHUNK_PQ.launches
     got = ik.ivf_chunk_scan_pq(sc, sv, q, packed, rn, cent2d, ratio2, m)
@@ -410,13 +433,23 @@ def test_ivf_chunk_pq_kernels_match_plain(cuda, m, nbits, ratio):
     want = ik.ivf_chunk_scan_pq_reference(sc, sv, q, packed, rn, cent2d, ratio2, m)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    empty = got[ik.visit_steps(sv, q.shape[0])[1] == 0]
+    assert empty.shape[0] >= 2
+    assert bool((empty[..., :2 * ik.KP] == 3.4e38).all())
+    assert bool((empty[..., 2 * ik.KP:].view(torch.int32) == 0).all())
+    if codes == "ties":  # the best and second-best of most stepped windows tie
+        stepped = got[ik.visit_steps(sv, q.shape[0])[1] > 0]
+        assert (stepped[..., :ik.KP] == stepped[..., ik.KP:2 * ik.KP]).float().mean() > 0.5
     before = kernels.IVF_CHUNK_PQ_FOLD.launches
-    got = ik.ivf_chunk_scan_pq_fold(sc, sv, qidx, q, packed, rn, cent2d, ratio2, m, 50)
+    facc = ik.ivf_chunk_scan_pq_fold(sc, sv, qidx, q, packed, rn, cent2d, ratio2, m, 50)
     assert kernels.IVF_CHUNK_PQ_FOLD.launches == before + 1
     want = ik.ivf_chunk_scan_pq_fold_reference(sc, sv, qidx, q, packed, rn, cent2d,
                                                ratio2, m, 50)
     torch.cuda.synchronize()
-    assert torch.equal(got[:50].view(torch.int32), want[:50].view(torch.int32))
+    assert torch.equal(facc[:50].view(torch.int32), want[:50].view(torch.int32))
+    alone = ik.ivf_fold(got, sv, qidx, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(alone.view(torch.int32), facc.view(torch.int32))
 
 
 @pytest.mark.parametrize("index_type", ["IVFINT8", "IVFPQ"])

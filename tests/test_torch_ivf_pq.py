@@ -86,7 +86,7 @@ def test_host_helpers_match_jax():
 
 
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
-@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6)])
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8)])
 @pytest.mark.parametrize("mode", ["packed", "fold"])
 def test_pq_scan_matches_jax_interpret(mode, m, nbits, ratio):
     """Multi-chunk visits and padding rows (code 0, a real codebook row,
@@ -118,6 +118,120 @@ def test_pq_scan_matches_jax_interpret(mode, m, nbits, ratio):
         got = tik.ivf_chunk_scan_pq_fold(t[0], t[1], t[2], t[3], t[4], t[5], cent2d,
                                          ratio2, m, nq).numpy()
         np.testing.assert_array_equal(got[:nq].view(np.int32), want[:nq].view(np.int32))
+
+
+@pytest.mark.parametrize("ratio", [1.0, 1.3])
+@pytest.mark.parametrize("mode", ["packed", "fold"])
+def test_pq_scan_ties_match_jax_interpret(mode, ratio):
+    """A tie-heavy layout: m 4 with ksub 2, so every row is one of 16
+    rebuilt rows and most lane windows' best and second-best tie; exact."""
+    nq, m = 60, 4
+    je, te = pq_layout(m, 1, seed=21)
+    rng = np.random.default_rng(22)
+    probe = np.stack([rng.permutation(5)[:3] for _ in range(nq)]).astype(np.int32)
+    sc, sv, qidx, slot_of = te._build_plan_chunked(probe, tik.QTK)
+    (packed, cent2d), rn, _ = te._chunk_store()
+    q8 = rng.integers(-127, 128, (nq, 128)).astype(np.int8)
+    qsteps = np.concatenate([q8, np.zeros((1, 128), np.int8)])[qidx]
+    ratio2 = 2.0 * float(np.float32(ratio))
+    cent_bf = jnp.asarray(cent2d.numpy().astype(np.float32), jnp.bfloat16)
+    j = [jnp.asarray(a) for a in (sc, sv, qidx, qsteps, packed.numpy(), rn.numpy())]
+    t = [torch.from_numpy(a) for a in (sc, sv, qidx, qsteps)] + [packed, rn]
+    if mode == "packed":
+        want = np.asarray(jik.ivf_chunk_scan_pq(
+            j[0], j[1], j[3], j[4], j[5], cent_bf, ratio2, jik.CHK, m, qidx.shape[0],
+            interpret=True))
+        got = tik.ivf_chunk_scan_pq(t[0], t[1], t[3], t[4], t[5], cent2d, ratio2,
+                                    m).numpy()
+        vis = np.unique(slot_of.ravel() // tik.QTK)
+        live = want[vis, :, :tik.KP] < np.float32(3.4e38)
+        ties = want[vis, :, :tik.KP] == want[vis, :, tik.KP:2 * tik.KP]
+        assert ties[live].mean() > 0.5  # most windows' best rows tie
+        np.testing.assert_array_equal(got[vis].view(np.int32), want[vis].view(np.int32))
+    else:
+        want = np.asarray(jik.ivf_chunk_scan_pq_fold(
+            j[0], j[1], j[2], j[3], j[4], j[5], cent_bf, ratio2, jik.CHK, m, nq,
+            interpret=True))
+        got = tik.ivf_chunk_scan_pq_fold(t[0], t[1], t[2], t[3], t[4], t[5], cent2d,
+                                         ratio2, m, nq).numpy()
+        ties = want[:nq, :tik.KP] == want[:nq, tik.KP:2 * tik.KP]
+        assert ties.mean() > 0.5
+        np.testing.assert_array_equal(got[:nq].view(np.int32), want[:nq].view(np.int32))
+
+
+def _pq_visit_length_case(m=16, nbits=8, seed=12, nq=40):
+    """A hand-made plan over 10 chunks (+ the all-empty dump chunk 10):
+    visits 0, 4 and 7 have no steps, visit 1 walks 7 chunks, visit 5 six,
+    the others one or two; chunk 4 is half empty (code 0 under a 3.4e38
+    norm) and odd chunks take one of 8 code rows (ties).  -> (sc, sv, qidx,
+    qsteps, packedC, rnC, cent2d) as numpy, 8 visits."""
+    rng = np.random.default_rng(seed)
+    n_chunks, ksub = 11, 1 << nbits
+    codes = rng.integers(0, ksub, (n_chunks, tik.CHK, m))
+    patterns = rng.integers(0, ksub, (8, m))
+    codes[1::2] = patterns[rng.integers(0, 8, (n_chunks // 2, tik.CHK))]
+    codes[4, 1000:] = codes[10] = 0
+    packed = np.zeros((n_chunks, -(-m // 4), tik.CHK), np.uint32)
+    for j in range(m):
+        packed[:, j // 4] |= codes[..., j].astype(np.uint32) << np.uint32(8 * (j % 4))
+    cent = rng.integers(-127, 128, (m, ksub, 128 // m))
+    rows = np.concatenate([cent[j][codes[..., j]] for j in range(m)], axis=-1)
+    rn = (rows.astype(np.int64) ** 2).sum(-1).astype(np.float32)
+    rn[4, 1000:] = rn[10] = np.float32(3.4e38)
+    steps = {1: list(range(7)), 2: [7], 3: [8, 9], 5: list(range(1, 7)), 6: [3]}
+    sc = np.array([c for v in sorted(steps) for c in steps[v]], np.int32)
+    sv = np.array([v for v in sorted(steps) for _ in steps[v]] + [-1], np.int32)
+    qidx = np.stack([np.where(rng.random(tik.QTK) < 0.8, rng.permutation(nq)[:tik.QTK], nq)
+                     for _ in range(8)]).astype(np.int32)
+    q8 = rng.integers(-127, 128, (nq, 128)).astype(np.int8)
+    qsteps = np.concatenate([q8, np.zeros((1, 128), np.int8)])[qidx]
+    return (sc, sv, qidx, qsteps, packed.view(np.int32), rn,
+            cent.reshape(m * ksub, 128 // m).astype(np.int8))
+
+
+@pytest.mark.parametrize("ratio", [1.0, 1.3])
+@pytest.mark.parametrize("mode", ["packed", "fold"])
+def test_pq_scan_visit_lengths_match_jax_interpret(mode, ratio):
+    """Visits of 0, 1, 2, 6 and 7 chunk steps, tie-heavy chunks, against
+    the JAX kernels in interpret mode, exact.  A visit with no steps is
+    never written by the JAX kernel; the port writes it as (3.4e38, 0)."""
+    nq, m = 40, 16
+    sc, sv, qidx, qsteps, packed, rn, cent2d = _pq_visit_length_case(m)
+    ratio2 = 2.0 * float(np.float32(ratio))
+    cent_bf = jnp.asarray(cent2d.astype(np.float32), jnp.bfloat16)
+    j = [jnp.asarray(a) for a in (sc, sv, qidx, qsteps, packed, rn)]
+    t = [torch.from_numpy(a) for a in (sc, sv, qidx, qsteps, packed, rn, cent2d)]
+    if mode == "packed":
+        want = np.asarray(jik.ivf_chunk_scan_pq(
+            j[0], j[1], j[3], j[4], j[5], cent_bf, ratio2, jik.CHK, m, qidx.shape[0],
+            interpret=True))
+        got = tik.ivf_chunk_scan_pq(t[0], t[1], t[3], t[4], t[5], t[6], ratio2, m).numpy()
+        stepped = np.unique(sv[:-1])
+        np.testing.assert_array_equal(got[stepped].view(np.int32),
+                                      want[stepped].view(np.int32))
+        empty = got[[0, 4, 7]]
+        assert (empty[..., :2 * tik.KP] == np.float32(3.4e38)).all()
+        assert (empty[..., 2 * tik.KP:].view(np.int32) == 0).all()
+    else:
+        want = np.asarray(jik.ivf_chunk_scan_pq_fold(
+            j[0], j[1], j[2], j[3], j[4], j[5], cent_bf, ratio2, jik.CHK, m, nq,
+            interpret=True))
+        got = tik.ivf_chunk_scan_pq_fold(t[0], t[1], t[2], t[3], t[4], t[5], t[6], ratio2,
+                                         m, nq).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got[:nq].view(np.int32), want[:nq].view(np.int32))
+
+
+def test_fold_pass_alone_matches_fold_scan():
+    """ivf_fold over the packed scan's states gives the fold scan's whole
+    accumulator (the fold scans are the packed scan, then this pass)."""
+    nq, m = 40, 16
+    sc, sv, qidx, qsteps, packed, rn, cent2d = (
+        torch.from_numpy(a) for a in _pq_visit_length_case(m))
+    states = tik.ivf_chunk_scan_pq(sc, sv, qsteps, packed, rn, cent2d, 2.6, m)
+    facc = tik.ivf_chunk_scan_pq_fold(sc, sv, qidx, qsteps, packed, rn, cent2d, 2.6, m, nq)
+    got = tik.ivf_fold(states, sv, qidx, nq)
+    assert torch.equal(got.view(torch.int32), facc.view(torch.int32))
 
 
 def _codes_and_codebook(seed, x, m=8, nbits=8):
