@@ -35,6 +35,15 @@ Phases (any failure raises and the exit code is not 0):
               its defaults (100 steps, batch 512, lr 1e-4; the loss must
               fall); a profile of three steps; build-index --weights ->
               pipeline on phase 5's reads (top-1 >= phase 5's - 0.01)
+ 10. genome_sam on phase 5's index, genome and reads at k 10: pipeline
+              --mapq --cigar --qual --read-group --sort --mark-duplicates
+              --bam (SEQ + CIGAR + MD rebuild the genome, CIGARs cover 150
+              bases, POS, MAPQ range, QUAL, RG, sort order, BAM + BAI);
+              use_streaming 1 == 0 byte for byte; --mapq-calibrated ==
+              calibrate_mapq(raw); --rerank sw --mapq launches sw_score;
+              inference == the pipeline's embeddings; the bf16 Vectorizer's
+              top-1; serve in process == the one-shot pipeline; the bench
+              twin's line and ids; --profile names gru_fwd and int8_winmin
 Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
 results line), holds the four IVF chunk scans against their plain versions
 on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
@@ -88,6 +97,15 @@ TF32_OPS_S = 495e12                 # TF32 tensor cores, dense
 # compute capability 9.0 (CUDA C++ Programming Guide), 132 SMs, 1.98 GHz
 INT32_OPS_S = 132 * 64 * 1.98e9
 SW_OPS_PER_CELL = 7                 # match test, diag+s, max 0, max(up,left), -1, max, best
+SAM_K = 10                          # phase 10's k: 81,920 SAM lines for 8192 reads
+BENCH_REPS = 100                    # the bench twin's tiling: bench.py's 15,000 reads
+# bwa's tab form with literal "\t" escapes; io.sam.parse_read_group (both
+# packages) takes the fields without bwa's leading "@RG"
+SAM_RG = "ID:smoke\\tSM:s1"
+BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000000000")
+# bench.py's JSON keys: the bench twin's line must carry exactly these
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device_qps", "qps_median",
+              "device_qps_median", "e2e_trials_s", "device_trials_s", "stage_s"}
 
 
 def log(msg: str) -> None:
@@ -864,7 +882,7 @@ def phase_genome(results: dict):
 
     work = os.path.join(WORK, "genome")
     os.makedirs(work, exist_ok=True)
-    ref, fq, starts, strands, mat, _ = simulate(work)
+    ref, fq, starts, strands, mat, body = simulate(work)
     idx, out = os.path.join(work, "idx"), os.path.join(work, "out")
     torch.cuda.reset_peak_memory_stats()
 
@@ -946,7 +964,8 @@ def phase_genome(results: dict):
         raise AssertionError("genome-scale fused scan: kernel != plain version")
     log(f"[genome] fused scan over {codes.shape[0]} rows x 1024 reads: "
         "kernel-driven == plain-driven")
-    return {"ref": ref, "fq": fq, "starts": starts, "strands": strands, "top1": top1}
+    return {"ref": ref, "fq": fq, "starts": starts, "strands": strands, "top1": top1,
+            "idx": idx, "out": out, "genome": body, "wrapped": mat}
 
 
 def phase_genome_pq(results: dict):
@@ -1510,6 +1529,378 @@ def phase_finetune(results: dict, genome: dict):
         raise AssertionError(f"fine-tuned top-1 {top1} < {genome['top1']} - 0.01")
 
 
+def _sam_reads(path: str) -> tuple[list[str], dict]:
+    """(header lines, read name -> its SAM lines split into fields, in file
+    order)."""
+    header, reads = [], {}
+    with open(path) as f:
+        for ln in f:
+            if ln.startswith("@"):
+                header.append(ln.rstrip("\n"))
+            else:
+                fields = ln.rstrip("\n").split("\t")
+                reads.setdefault(fields[0], []).append(fields)
+    return header, reads
+
+
+def _primary(lines: list) -> list:
+    return next(f for f in lines if not int(f[1]) & 0x100)
+
+
+def _reconstruct_ref(seq: str, cigar: str, md: str) -> str:
+    """SEQ + CIGAR + MD -> the reference bases they align to (the samtools
+    calmd identity; tests/test_sam_tags.py's check)."""
+    import re
+
+    aligned, si = [], 0
+    for n, op in re.findall(r"(\d+)([MIDSH])", cigar):
+        n = int(n)
+        if op == "M":
+            aligned.append(seq[si:si + n])
+            si += n
+        elif op in ("I", "S"):
+            si += n
+    qa, ref, qi = "".join(aligned), [], 0
+    for tok in re.findall(r"(\d+|\^[A-Z]+|[A-Z])", md):
+        if tok.isdigit():
+            ref.append(qa[qi:qi + int(tok)])
+            qi += int(tok)
+        elif tok.startswith("^"):
+            ref.append(tok[1:])
+        else:
+            ref.append(tok)
+            qi += 1
+    return "".join(ref)
+
+
+def _bam_records(path: str) -> int:
+    """Records in a BAM file (gunzipped whole; checks the magic and the
+    BGZF EOF block)."""
+    import gzip
+    import struct
+
+    raw = open(path, "rb").read()
+    if not raw.endswith(BGZF_EOF):
+        raise AssertionError(f"{path} does not end in the BGZF EOF block")
+    data = gzip.decompress(raw)
+    if data[:4] != b"BAM\x01":
+        raise AssertionError(f"{path}: magic {data[:4]!r}")
+    (l_text,) = struct.unpack_from("<i", data, 4)
+    off = 8 + l_text
+    (n_ref,) = struct.unpack_from("<i", data, off)
+    off += 4
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack_from("<i", data, off)
+        off += 8 + l_name
+    n = 0
+    while off < len(data):
+        (block,) = struct.unpack_from("<i", data, off)
+        off += 4 + block
+        n += 1
+    if off != len(data):
+        raise AssertionError(f"{path}: a record overruns the data")
+    return n
+
+
+class _Timers:
+    """Accumulated host seconds of named module functions while patched in:
+    where the SAM path's time goes."""
+
+    def __init__(self, targets):
+        self.targets, self.s, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for label, mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.s[_label] = self.s.get(_label, 0.0) + time.perf_counter() - t0
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def line(self) -> str:
+        return " | ".join(f"{k} {v:.3f} s" for k, v in self.s.items())
+
+
+def phase_genome_sam(genome: dict):
+    """The full single-end SAM path on phase 5's index, genome and reads
+    (k = 10): MAPQ, CIGAR/NM/MD/AS, QUAL, read group, sort, duplicates,
+    BAM; streaming; calibrated and SW MAPQ; inference; the bf16 encoder;
+    serve; the bench twin; --profile.  Every gate raises."""
+    import contextlib
+    import io
+
+    import torch
+
+    from deepreadmapper_tpu_torch import bench, cli, kernels
+    from deepreadmapper_tpu_torch.index.registry import load_index
+    from deepreadmapper_tpu_torch.io import sam as sam_io
+    from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.ops.pack import bits_needed, pack_ids_device, unpack_ids_host
+    from deepreadmapper_tpu_torch.ops.topk import l2_topk
+    from deepreadmapper_tpu_torch.pipeline import postprocess as pp
+    from deepreadmapper_tpu_torch.pipeline import search as ps
+    from deepreadmapper_tpu_torch.pipeline.build import embed_fasta_windows
+    from deepreadmapper_tpu_torch.pipeline.serve import serve
+    from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped
+
+    work = os.path.join(WORK, "genome_sam")
+    os.makedirs(work, exist_ok=True)
+    ref, idx, starts, strands = genome["ref"], genome["idx"], genome["starts"], genome["strands"]
+    gbytes = genome["genome"].tobytes().decode()
+    n = starts.size
+    # phase 5's reads with qualities that vary along each read, so a
+    # reversed QUAL shows
+    quals = ["".join(chr(33 + (7 * j + i) % 41) for j in range(READ_LEN)) for i in range(n)]
+    fq = os.path.join(work, "reads.fastq")
+    with open(genome["fq"]) as src, open(fq, "w") as f:
+        for i, rec in enumerate(zip(*[iter(src.read().splitlines())] * 4)):
+            f.write(f"{rec[0]}\n{rec[1]}\n+\n{quals[i]}\n")
+    reads = {f"_{starts[i]}_{strands[i]}_{i}": i for i in range(n)}
+    top = np.load(os.path.join(genome["out"], "indices.npy"))[:, 0].astype(np.int64)
+    right = (np.abs((top >> 1) - starts) <= 5) & ((top & 1) == strands)  # as phase 5 judges
+    args = [idx, fq, ref, "128", str(SAM_K), "5"]
+    rg = ["--read-group", SAM_RG]
+
+    # 1. the full feature path
+    out = os.path.join(work, "full")
+    timers = _Timers([("quals", ps, "parse_fastq_quals"), ("rerank", pp, "post_process_l2"),
+                      ("cigar", ps, "_primary_alignment_cigars"), ("mapq", ps, "compute_mapq"),
+                      ("sam", sam_io, "write_sam"), ("sort", sam_io, "sort_sam_file"),
+                      ("dups", sam_io, "mark_duplicates"), ("bam", ps, "sam_to_bam")])
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with timers:
+        rc = cli.main(["pipeline", *args, out, "--mapq", "--cigar", "--qual", *rg, "--sort",
+                       "--mark-duplicates", "--bam"])
+    t_full = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError("genome_sam full pipeline failed")
+    log(f"[genome_sam] full pipeline ({n} reads, k {SAM_K}): {t_full:.2f} s; host split: "
+        f"{timers.line()}; launches {kernels.counts()}")
+    sam = os.path.join(out, "results.sam")
+    header, recs = _sam_reads(sam)
+    lines = [f for v in recs.values() for f in v]
+    if len(recs) != n or len(lines) != n * SAM_K:
+        raise AssertionError(f"SAM holds {len(recs)} reads, {len(lines)} lines")
+    if "@RG\tID:smoke\tSM:s1" not in header or not all(f[-1] == "RG:Z:smoke" for f in lines):
+        raise AssertionError("read group missing from the header or a line")
+    mapqs = np.array([int(f[4]) for f in lines])
+    if mapqs.min() < 0 or mapqs.max() > 60:
+        raise AssertionError(f"MAPQ out of [0, 60]: {mapqs.min()}..{mapqs.max()}")
+    comp = str.maketrans("ACGT", "TGCA")
+    n_real = pos_ok = pos_n = 0
+    prim_mapq = np.zeros(n, np.int64)
+    for name, fl in recs.items():
+        i = reads[name]
+        for f in fl:
+            real = "\tNM:i:" in "\t" + "\t".join(f[11:])
+            rev = int(f[1]) & 16 and real
+            want_q = quals[i][::-1] if rev else quals[i]
+            if f[10] != want_q:
+                raise AssertionError(f"{name}: QUAL differs from the FASTQ's")
+        p = _primary(fl)
+        prim_mapq[i] = int(p[4])
+        tags = {t.split(":", 2)[0]: t.split(":", 2)[2] for t in p[11:]}
+        if "MD" not in tags:
+            continue
+        n_real += 1
+        pos, cigar, seq = int(p[3]), p[5], p[9]
+        recon = _reconstruct_ref(seq, cigar, tags["MD"])
+        if recon != gbytes[pos - 1: pos - 1 + len(recon)]:
+            raise AssertionError(f"{name}: SEQ + CIGAR + MD do not rebuild the genome at {pos}")
+        import re
+
+        ops = re.findall(r"(\d+)([MIDS])", cigar)
+        if sum(int(k) for k, op in ops if op in "MIS") != READ_LEN:
+            raise AssertionError(f"{name}: CIGAR {cigar} does not cover {READ_LEN} bases")
+        if right[i]:
+            lead = int(ops[0][0]) if ops[0][1] == "S" else 0
+            pos_n += 1
+            pos_ok += pos - lead == starts[i] + 1
+    if n_real < 0.99 * n:
+        raise AssertionError(f"only {n_real} of {n} primaries carry a real CIGAR")
+    log(f"[genome_sam] {n_real} primaries with a real CIGAR: every one rebuilds the genome "
+        f"from SEQ + CIGAR + MD and covers {READ_LEN} bases; POS - leading clip == the "
+        f"simulated start on {pos_ok}/{pos_n} primaries with a right top-1 (need >= 0.99); "
+        f"QUAL and RG on every line")
+    if pos_ok < 0.99 * pos_n:
+        raise AssertionError(f"POS right on {pos_ok}/{pos_n}")
+    keys = [(f[2], int(f[3])) for ln in open(sam) if not ln.startswith("@")
+            for f in [ln.split("\t", 4)]]
+    if keys != sorted(keys) or "SO:coordinate" not in header[0]:
+        raise AssertionError("the SAM is not coordinate-sorted")
+    n_bam = _bam_records(os.path.join(out, "results.bam"))
+    if n_bam != len(lines) or not os.path.exists(os.path.join(out, "results.bam.bai")):
+        raise AssertionError(f"BAM holds {n_bam} records of {len(lines)}, or no .bai")
+    hist = np.bincount(prim_mapq, minlength=61)
+    log(f"[genome_sam] sorted; BAM: {n_bam} records, EOF block, .bai; primary MAPQ "
+        f"histogram (value:count) {dict((int(q), int(c)) for q, c in enumerate(hist) if c)}; "
+        f"median MAPQ, right top-1 {np.median(prim_mapq[right]):.0f} ({right.sum()} reads), "
+        f"wrong {np.median(prim_mapq[~right]) if (~right).any() else float('nan'):.0f} "
+        f"({(~right).sum()} reads)")
+
+    # 2. streaming: two batches of the default 5000 reads, the same bytes
+    outs = {}
+    for streaming in ("1", "0"):
+        o = os.path.join(work, f"stream{streaming}")
+        t0 = time.perf_counter()
+        if cli.main(["pipeline", *args, o, "0", streaming, "--mapq", "--cigar", "--qual",
+                     *rg]) != 0:
+            raise AssertionError("genome_sam streaming pipeline failed")
+        outs[streaming] = (open(os.path.join(o, "results.sam"), "rb").read(),
+                           time.perf_counter() - t0)
+    if outs["1"][0] != outs["0"][0]:
+        raise AssertionError("the streamed SAM differs from the one-shot SAM")
+    log(f"[genome_sam] use_streaming 1 ({-(-n // 5000)} batches of at most 5000 reads) "
+        f"and 0: byte-identical SAMs "
+        f"({len(outs['1'][0])} bytes; {outs['1'][1]:.2f} s against {outs['0'][1]:.2f} s)")
+
+    # 3. MAPQ: calibrated on the L2 path, raw on the SW path
+    o = os.path.join(work, "cal")
+    if cli.main(["pipeline", *args, o, "--mapq", "--mapq-calibrated"]) != 0:
+        raise AssertionError("genome_sam --mapq-calibrated failed")
+    raw = {k: int(_primary(v)[4]) for k, v in _sam_reads(
+        os.path.join(work, "stream0", "results.sam"))[1].items()}
+    cal = {k: int(_primary(v)[4]) for k, v in _sam_reads(os.path.join(o, "results.sam"))[1].items()}
+    names = sorted(raw)
+    if not np.array_equal(ps.calibrate_mapq(np.array([raw[k] for k in names])),
+                          np.array([cal[k] for k in names])):
+        raise AssertionError("calibrated MAPQ != calibrate_mapq(raw MAPQ)")
+    o = os.path.join(work, "sw")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    if cli.main(["pipeline", *args, o, "--rerank", "sw", "--mapq"]) != 0:
+        raise AssertionError("genome_sam --rerank sw --mapq failed")
+    launches = kernels.counts()
+    sw_q = [int(_primary(v)[4]) for v in _sam_reads(os.path.join(o, "results.sam"))[1].values()]
+    if launches["sw_score"] <= 0 or min(sw_q) < 0 or max(sw_q) > 60:
+        raise AssertionError(f"SW MAPQ path: launches {launches}, MAPQ {min(sw_q)}..{max(sw_q)}")
+    log(f"[genome_sam] --mapq-calibrated == calibrate_mapq(raw) on {len(names)} reads; "
+        f"--rerank sw --mapq in {time.perf_counter() - t0:.2f} s, launches {launches}, "
+        f"median primary MAPQ {np.median(sw_q):.0f}")
+
+    # 4. inference on the FASTQ against the pipeline path's embeddings
+    emb_path = os.path.join(work, "emb.npy")
+    if cli.main(["inference", fq, str(READ_LEN), emb_path]) != 0:
+        raise AssertionError("inference failed")
+    mat, lengths, _ = parse_fastq_bytes(fq)
+    vec = Vectorizer()
+    want = vec.vectorize_wrapped_bytes(mat, lengths)
+    err = float(np.abs(np.load(emb_path) - want).max())
+    log(f"[genome_sam] inference npy vs the pipeline's embeddings: max abs diff {err:.2e} "
+        "(need <= 1e-5)")
+    if err > 1e-5:
+        raise AssertionError(f"inference differs from the pipeline's embeddings by {err}")
+
+    # 5. the bf16 Vectorizer on the INT8FLAT index
+    engine, config = load_index(idx)
+    top1 = {}
+    for dtype in ("float32", "bfloat16"):
+        v = Vectorizer(dtype=dtype)
+        v.vectorize_wrapped_bytes(mat, lengths)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = v.vectorize_wrapped_bytes(mat, lengths)
+        t_e = time.perf_counter() - t0
+        ids, _ = engine.search(q, 1)
+        top1[dtype] = (_top1(ids, starts, strands), t_e)
+    log(f"[genome_sam] bf16 Vectorizer: top-1 {top1['bfloat16'][0]:.4f} against fp32 "
+        f"{top1['float32'][0]:.4f} (need >= fp32 - 0.01); embed {top1['bfloat16'][1]:.3f} s "
+        f"against {top1['float32'][1]:.3f} s")
+    if top1["bfloat16"][0] < top1["float32"][0] - 0.01:
+        raise AssertionError(f"bf16 top-1 {top1['bfloat16'][0]}")
+
+    # 6. serve in process: two requests, a paired one, quit
+    del engine
+    o1, o2 = os.path.join(work, "srv1"), os.path.join(work, "srv2")
+    reqs = [{"id": "plain", "fastq": fq, "output_dir": o1, "ef": 128, "k": SAM_K,
+             "k_clusters": 5},
+            {"id": "tags", "fastq": fq, "output_dir": o2, "ef": 128, "k": SAM_K,
+             "k_clusters": 5, "mapq": True, "cigar": True, "qual": True,
+             "read_group": SAM_RG},
+            {"id": "pair", "fastq": fq, "fastq2": fq, "output_dir": os.path.join(work, "p")},
+            {"cmd": "quit"}]
+    sout = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()) as noise:
+        served = serve(idx, ref, in_stream=io.StringIO(
+            "".join(json.dumps(r) + "\n" for r in reqs)), out_stream=sout)
+    replies = [json.loads(ln) for ln in sout.getvalue().splitlines()]
+    if noise.getvalue() or served != 2 or [r.get("ok") for r in replies] != [True, True, True,
+                                                                              False, True]:
+        raise AssertionError(f"serve: {served} served, replies {replies}, stdout "
+                             f"{noise.getvalue()[:200]!r}")
+    o1_one = os.path.join(work, "one_shot")
+    one = ps.run_pipeline(idx, fq, ref, ef=128, k=SAM_K, k_clusters=5, output_dir=o1_one)
+    same = [open(os.path.join(o1, "results.sam"), "rb").read()
+            == open(os.path.join(o1_one, "results.sam"), "rb").read(),
+            open(os.path.join(o2, "results.sam"), "rb").read()
+            == open(os.path.join(work, "stream0", "results.sam"), "rb").read()]
+    if not all(same):
+        raise AssertionError(f"serve's SAMs differ from the one-shot pipeline's: {same}")
+    warm = replies[2]
+    log(f"[genome_sam] serve: t_load {replies[0]['t_load']:.3f} s; warm request (tags) embed + "
+        f"search {warm['t_embed'] + warm['t_search']:.3f} s, post {warm['t_post']:.3f} s; the "
+        f"one-shot run {one['t_embed'] + one['t_search']:.3f} s (index load "
+        f"{one['t_index']:.3f} s); both SAMs equal the one-shot ones; the paired request: "
+        f"{replies[3]['error'][:60]}...")
+
+    # 7. the bench twin: its line, and its ids against an unpacked top-k
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(reps=BENCH_REPS)
+    line = buf.getvalue().strip().splitlines()
+    rec = json.loads(line[-1]) if line else {}
+    log(f"[genome_sam] bench twin: {line[-1] if line else 'no line'}")
+    if rc != 0 or len(line) != 1 or set(rec) != BENCH_KEYS or not rec["value"] > 0:
+        raise AssertionError(f"bench twin line: {line}")
+    _, ids = bench.bench(reps=BENCH_REPS, trials=1)
+    mat_f, len_f, _ = parse_fastq_bytes(os.path.join(FIXTURE, "test_data.fastq"))
+    mat_f, len_f = np.tile(mat_f, (BENCH_REPS, 1)), np.tile(len_f, BENCH_REPS)
+    from deepreadmapper_tpu_torch.io import fasta as fasta_io
+
+    vec4 = Vectorizer(device_batch=4096)
+    ref_emb = embed_fasta_windows(
+        fasta_io.parse_fasta_records(os.path.join(FIXTURE, "ecoli_150.fna")), 150, 1, vec4,
+        device_out=True)
+    with torch.no_grad():
+        emb = vec4.encoder.encode_packed(torch.from_numpy(pack_wrapped(mat_f, len_f)).cuda())
+        _, plain = l2_topk(emb, ref_emb, 128)
+    plain = plain.cpu().numpy()
+    nb = bits_needed(ref_emb.shape[0])
+    round_trip = unpack_ids_host(pack_ids_device(torch.from_numpy(plain).cuda(), nb)
+                                 .cpu().numpy(), 128, nb)
+    if not (np.array_equal(ids, plain) and np.array_equal(round_trip, plain)):
+        raise AssertionError("the bench twin's unpacked ids != the unpacked top-k")
+    log(f"[genome_sam] bench twin ids ({ids.shape[0]} x 128, {nb}-bit packs) == the "
+        "unpacked top-k on the card")
+
+    # 8. --profile: the trace names both kernels of the path.  On phase 5's
+    # index: the fixture's 1,702 rows are below the fused scan's 2^18-row
+    # threshold (scan_kernel.MIN_FUSED_N), so its search launches no #2
+    pdir = os.path.join(work, "profile")
+    if cli.main(["pipeline", *args, os.path.join(work, "prof_out"), "--no-sam",
+                 "--profile", pdir]) != 0:
+        raise AssertionError("--profile pipeline failed")
+    trace = json.load(open(os.path.join(pdir, "pipeline.pt.trace.json")))
+    kern = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kern) for k in ("gru_fwd", "int8_winmin")}
+    log(f"[genome_sam] --profile trace: {len(kern)} kernel events, by name {found}")
+    if not all(found.values()):
+        raise AssertionError(f"the trace names no {[k for k, v in found.items() if not v]}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = phase_device()
@@ -1537,6 +1928,11 @@ def main() -> int:
     phase_genome_ivfpq(results, pqflat)
     log(f"[time] phases 1-8 in {time.perf_counter() - t0:.1f} s")
     phase_finetune(results, genome)
+    log(f"[time] phases 1-9 in {time.perf_counter() - t0:.1f} s")
+    t10 = time.perf_counter()
+    phase_genome_sam(genome)
+    log(f"[time] phase 10 (genome_sam) in {time.perf_counter() - t10:.1f} s; phases 1-10 in "
+        f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

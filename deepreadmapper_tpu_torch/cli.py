@@ -1,38 +1,44 @@
-"""Command-line entry points of the port: ``build-index``, ``pipeline`` and
-``finetune``, with the positional arguments of ``deepreadmapper_tpu/cli.py``.
+"""Command-line entry points of the port, with the subcommands and
+positional arguments of ``deepreadmapper_tpu/cli.py``:
 
   pipeline     <index_prefix> <query> <ref> [ef k k_clusters output_dir
-               use_dynamic use_streaming]
+               use_dynamic use_streaming] [--cigar --mapq ... --profile DIR]
   build-index  <ref> <index_prefix> <ref_len> [stride M_pq nbits M_hnsw EFC]
-               [--weights tuned.npz]
+               [--weights tuned.npz --resume]
+  serve        <index_prefix> <ref> (JSONL requests on stdin)
+  inference    <seqs> <ref_len> [out.npy] [batch]
   finetune     <ref> <ref_len> [-o tuned.npz --steps --batch --lr ...]
+  info         <index_prefix>
+  plan         <genome FASTA | base count> [ref_len] [--stride --hbm-gb]
+  gen-ref      -i input -l ref_len -s stride -o out
 
-All run on the CUDA device; ``--device cpu`` runs them on the CPU, and
-without a card and without that flag they exit with status 2 before
-reading or writing anything.  Flags of the JAX CLI that the port does not
-have yet are accepted and raise NotImplementedError, so a command line
-written for either package gives a clear answer.
+The commands that compute run on the CUDA device; ``--device cpu`` runs
+them on the CPU, and without a card and without that flag they exit with
+status 2 before reading or writing anything.  info, plan and gen-ref touch
+no device.  Flags of the JAX CLI that the port does not have yet are
+accepted and raise NotImplementedError, so a command line written for
+either package gives a clear answer.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from deepreadmapper_tpu_torch import not_ported, resolve_device
 
 # Flags of the JAX CLI whose features are not ported yet (ROADMAP.md).
 _PIPELINE_UNPORTED = (
-    "--cigar", "--mapq", "--mapq-calibrated", "--long-reads", "--qual",
-    "--sort", "--bam", "--mark-duplicates", "--distributed",
-    "--paired-interleaved", "--no-rescue",
+    "--long-reads", "--distributed", "--paired-interleaved", "--no-rescue",
 )
 _PIPELINE_UNPORTED_VALUED = (
-    "--paired2", "--read-group", "--profile", "--lr-max-chunks",
-    "--max-isize", "--min-isize",
+    "--paired2", "--lr-max-chunks", "--max-isize", "--min-isize",
 )
-_BUILD_UNPORTED = ("--resume", "--distributed")
+_BUILD_UNPORTED = ("--distributed",)
 _BUILD_UNPORTED_VALUED = ("--shards", "--level-mode", "--build-mode")
+# plan's --hbm-gb default without a visible card: the H100's 80 GB
+_DEFAULT_HBM_GB = 80.0
 
 
 def _add_device(p):
@@ -59,6 +65,30 @@ def _add_pipeline(sub):
                         "(stride 1) index")
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="encoder weights npz for query embedding")
+    p.add_argument("--cigar", action="store_true",
+                   help="real SW-traceback CIGARs (soft clips + M/I/D), "
+                        "alignment-exact POS and NM/MD/AS on primary lines")
+    p.add_argument("--mapq", action="store_true",
+                   help="margin-based MAPQ on primary lines (best vs best at "
+                        "a different locus; repeats get 0)")
+    p.add_argument("--mapq-calibrated", action="store_true",
+                   help="with --mapq: map the margin MAPQ through the fitted "
+                        "calibration table")
+    p.add_argument("--qual", action="store_true",
+                   help="FASTQ base qualities in the QUAL column")
+    p.add_argument("--sort", action="store_true",
+                   help="coordinate-sort the SAM (SO:coordinate)")
+    p.add_argument("--bam", action="store_true",
+                   help="also write results.bam (with --sort, and its .bai)")
+    p.add_argument("--mark-duplicates", action="store_true",
+                   help="mark duplicates (FLAG 0x400; best MAPQ stays "
+                        "unmarked)")
+    p.add_argument("--read-group", default=None, metavar="RG",
+                   help="@RG header + RG:Z tag on every line; fields with a "
+                        "required ID: (e.g. 'ID:run1,SM:sampleA')")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the query "
+                        "embed and the search into DIR")
     _add_device(p)
     for flag in _PIPELINE_UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
@@ -90,6 +120,11 @@ def _add_build(sub):
                    help="fine-tuned encoder weights npz (finetune output): "
                         "embeds the windows and is copied into the index, "
                         "so pipeline embeds the queries with it")
+    p.add_argument("--resume", action="store_true",
+                   help="crash-resumable streaming build: code chunks "
+                        "checkpoint to <prefix>/.build_cache/ and a rerun "
+                        "skips what is already embedded (INT8FLAT, IVFINT8, "
+                        "PQFLAT, IVFPQ from FASTA)")
     _add_device(p)
     for flag in _BUILD_UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
@@ -126,10 +161,212 @@ def _add_finetune(sub):
     _add_device(p)
 
 
+def _add_serve(sub):
+    p = sub.add_parser(
+        "serve",
+        help="serving daemon: load the index once, answer FASTQ->SAM "
+             "requests over line-delimited JSON on stdin/stdout",
+    )
+    p.add_argument("index_prefix")
+    p.add_argument("ref_file")
+    p.add_argument("--ef", type=int, default=None)
+    p.add_argument("--k", type=int, default=None)
+    p.add_argument("--k-clusters", type=int, default=None)
+    p.add_argument("--rerank", default="l2", choices=["l2", "sw"])
+    p.add_argument("--dense-rerank", action="store_true")
+    p.add_argument("--cigar", action="store_true")
+    p.add_argument("--mapq", action="store_true")
+    _add_device(p)
+
+
+def _add_info(sub):
+    p = sub.add_parser("info", help="inspect an index directory (no engine load)")
+    p.add_argument("index_prefix")
+
+
+def _add_plan(sub):
+    p = sub.add_parser(
+        "plan",
+        help="deployment sizing advisor: engine/stride/shard "
+             "recommendations for a genome size + device memory budget",
+    )
+    p.add_argument("genome", help="reference FASTA path OR a base count "
+                                  "like 3.1e9 / 3100000000")
+    p.add_argument("ref_len", nargs="?", type=int, default=150)
+    p.add_argument("--stride", type=int, default=0,
+                   help="fix the stride (default: recommend one)")
+    p.add_argument("--hbm-gb", type=float, default=None,
+                   help="usable device memory per card for index residency "
+                        "(default: the visible card's total memory; "
+                        f"{_DEFAULT_HBM_GB:g} without a card)")
+
+
+def _add_inference(sub):
+    p = sub.add_parser("inference", help="embed sequences to npy")
+    p.add_argument("input_file")
+    p.add_argument("ref_len", type=int)
+    p.add_argument("output", nargs="?", default="embeddings.npy")
+    p.add_argument("batch_size", nargs="?", type=int, default=65536,
+                   help="windows or reads embedded per streamed chunk")
+    p.add_argument("--stride", type=int, default=1)
+    p.add_argument("--weights", default=None, metavar="NPZ",
+                   help="fine-tuned encoder weights npz (default: shipped "
+                        "pretrained model)")
+    _add_device(p)
+
+
+def _add_gen_ref(sub):
+    p = sub.add_parser("gen-ref", help="dump windowed sequences to txt")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-l", "--ref-len", type=int, required=True)
+    p.add_argument("-s", "--stride", type=int, default=1)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-L", "--lookup", action="store_true",
+                   help="no <...> wrapping (lookup mode)")
+
+
 def _refuse_unported(args, flags) -> None:
     for flag in flags:
         if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None, False):
             raise not_ported(flag)
+
+
+def _info(index_prefix: str) -> int:
+    """The JAX CLI's ``info``: config.txt, files on disk, bytes a vector."""
+    from deepreadmapper_tpu_torch.io.configstore import load_config
+
+    cfg_path = os.path.join(index_prefix, "config.txt")
+    if not os.path.exists(cfg_path):
+        print(f"[INFO] no config.txt under {index_prefix}")
+        return 1
+    config = load_config(cfg_path)
+    for key, val in config.items():
+        print(f"{key}: {val}")
+    if os.path.exists(os.path.join(index_prefix, "sharded.txt")):
+        shard_ids = sorted(d for d in os.listdir(index_prefix) if d.startswith("shard_"))
+        print(f"sharded: yes ({len(shard_ids)} shard dirs on disk)")
+    total = 0
+    for root, _dirs, files in os.walk(index_prefix):
+        for fn in sorted(files):
+            p = os.path.join(root, fn)
+            sz = os.path.getsize(p)
+            total += sz
+            print(f"file: {os.path.relpath(p, index_prefix)}  {sz/1e6:.2f} MB")
+    print(f"disk_total_mb: {total/1e6:.2f}")
+    nv = int(config.get("n_vects", 0))
+    if nv:
+        print(f"bytes_per_vector: {total/nv:.1f}")
+    if config.get("weights"):
+        print("encoder: index-matched fine-tuned weights (encoder.npz)")
+    return 0
+
+
+def _card_gb() -> float:
+    """Total memory of the visible card in GB (1e9 bytes), else the H100's."""
+    import torch
+
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(0).total_memory / 1e9
+    return _DEFAULT_HBM_GB
+
+
+def _plan(args) -> int:
+    """The JAX CLI's ``plan``, the same sizing rules and output, against the
+    card's memory by default."""
+    if os.path.exists(args.genome):
+        from deepreadmapper_tpu_torch.utils.memory import estimate_window_count
+
+        n_bases = os.path.getsize(args.genome)  # ~1 B/base incl headers
+        dense = estimate_window_count(args.genome, args.ref_len, 1)
+    else:
+        n_bases = int(float(args.genome))
+        dense = max(0, (n_bases - args.ref_len) + 1) * 2
+    hbm = (args.hbm_gb if args.hbm_gb is not None else _card_gb()) * 1e9
+    stride = args.stride or (1 if dense * 128 <= hbm else 4)
+    nv = dense // stride
+    print(f"genome: ~{n_bases/1e6:.1f} Mbp -> {nv} vectors at "
+          f"stride {stride} (both strands)")
+    engines = [
+        ("INT8FLAT", nv * 128, "near-exact (0.995+ recall@10)"),
+        ("IVFINT8", int(nv * 128 / 0.8),
+         "sub-linear scan; the >100M-row tier (EF = nprobe)"),
+        ("PQFLAT+OPQ", nv * 8 + 2 ** 8 * 128 * 4,
+         "16x less HBM; 0.96-0.99 raw top-1 with rerank"),
+        ("PQFLAT16+OPQ", nv * 16 + 2 ** 8 * 128 * 4, "0.989 raw at 16 B/vector"),
+        ("FLAT", nv * 128 * 4, "exact fp32 oracle (small refs only)"),
+    ]
+    print(f"{'engine':<14}{'index':>10}  {'chips':>5}  notes")
+    for name, nbytes, note in engines:
+        shards = max(1, -(-nbytes // int(hbm)))
+        print(f"{name:<14}{nbytes/1e9:>9.2f}G  {shards:>5}  {note}")
+    print(
+        "recommend: "
+        + (
+            "INT8FLAT, 1 chip"
+            if nv * 128 <= hbm
+            else f"INT8FLAT over --shards {-(-nv * 128 // int(hbm))} "
+                 f"(or PQFLAT+OPQ on "
+                 f"{max(1, -(-(nv * 8) // int(hbm)))} chip(s) at 8 B/vec)"
+        )
+    )
+    if stride > 1:
+        print(
+            f"stride {stride} halves nothing for free: run finetune "
+            f"--max-shift {stride - 1} first (sparse top-1 0.81 -> "
+            "0.995 measured at 46 Mbp), then build with "
+            "--weights tuned.npz"
+        )
+    print("long reads: add pipeline --long-reads (chunk+chain); "
+          "crash safety: build-index --resume")
+    return 0
+
+
+def _gen_ref(args) -> int:
+    from deepreadmapper_tpu_torch.io.fasta import parse_fasta_records, windows_as_strings
+
+    records = parse_fasta_records(args.input)
+    seqs, _ = windows_as_strings(records, args.ref_len, args.stride,
+                                 lookup_mode=args.lookup)
+    with open(args.output, "w") as f:
+        for s in seqs:
+            f.write(s + "\n")
+    print(f"[GEN-REF] wrote {len(seqs)} windows to {args.output}")
+    return 0
+
+
+def _vectorizer(weights, device):
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer, load_params
+
+    return Vectorizer(load_params(weights) if weights else None, device=device)
+
+
+def _inference(args, device) -> int:
+    import numpy as np
+
+    from deepreadmapper_tpu_torch.io.fileio import true_ext
+    from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS
+    from deepreadmapper_tpu_torch.pipeline.build import (
+        embed_input_file,
+        stream_embed_fasta_to_npy,
+        stream_embed_seqs_to_npy,
+    )
+
+    vec = _vectorizer(args.weights, device)
+    ext = true_ext(args.input_file)
+    if ext in FASTA_EXTS:
+        n = stream_embed_fasta_to_npy(args.input_file, args.output, args.ref_len,
+                                      args.stride, vec, window_chunk=args.batch_size)
+        print(f"[INFERENCE] streamed ({n}, 128) to {args.output}")
+        return 0
+    if ext in FASTQ_EXTS or ext == ".txt":
+        n = stream_embed_seqs_to_npy(args.input_file, args.output, vec,
+                                     batch=args.batch_size)
+        print(f"[INFERENCE] streamed ({n}, 128) to {args.output}")
+        return 0
+    emb = embed_input_file(args.input_file, args.ref_len, args.stride, vec)
+    np.save(args.output, emb)
+    print(f"[INFERENCE] wrote {emb.shape} to {args.output}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -137,8 +374,20 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_pipeline(sub)
     _add_build(sub)
+    _add_serve(sub)
+    _add_info(sub)
+    _add_plan(sub)
+    _add_inference(sub)
     _add_finetune(sub)
+    _add_gen_ref(sub)
     args = ap.parse_args(argv)
+
+    if args.cmd == "info":
+        return _info(args.index_prefix)
+    if args.cmd == "plan":
+        return _plan(args)
+    if args.cmd == "gen-ref":
+        return _gen_ref(args)
     try:
         device = resolve_device(None if args.device == "cuda" else args.device)
     except RuntimeError as e:
@@ -149,14 +398,12 @@ def main(argv=None) -> int:
         _refuse_unported(args, _PIPELINE_UNPORTED + _PIPELINE_UNPORTED_VALUED)
         from deepreadmapper_tpu_torch.pipeline.search import run_pipeline
 
-        vectorizer = None
-        if args.weights:
-            from deepreadmapper_tpu_torch.models.encoder import (
-                Vectorizer,
-                load_params,
-            )
+        if args.read_group:
+            # fail fast: a malformed read group would otherwise raise only
+            # in the SAM writer, after the embed and the search
+            from deepreadmapper_tpu_torch.io.sam import parse_read_group
 
-            vectorizer = Vectorizer(load_params(args.weights), device=device)
+            parse_read_group(args.read_group)
         res = run_pipeline(
             args.index_prefix,
             args.query_file,
@@ -170,7 +417,16 @@ def main(argv=None) -> int:
             rerank=args.rerank,
             dense_rerank=args.dense_rerank,
             write_sam=not args.no_sam,
-            vectorizer=vectorizer,
+            cigar=args.cigar,
+            mapq=args.mapq,
+            mapq_calibrated=args.mapq_calibrated,
+            qual=args.qual,
+            sort=args.sort,
+            bam=args.bam,
+            mark_dups=args.mark_duplicates,
+            read_group=args.read_group,
+            profile_dir=args.profile,
+            vectorizer=_vectorizer(args.weights, device) if args.weights else None,
             device=device,
         )
         print(
@@ -202,10 +458,34 @@ def main(argv=None) -> int:
             build_cfg=cfg,
             device=device,
             weights=args.weights,
+            resume=args.resume,
         )
         print(f"[BUILD INDEX] saved {config['n_vects']} vectors to "
               f"{args.index_prefix}")
         return 0
+
+    if args.cmd == "serve":
+        from deepreadmapper_tpu_torch.pipeline.serve import serve
+
+        defaults = {
+            k: v
+            for k, v in {
+                "ef": args.ef,
+                "k": args.k,
+                "k_clusters": args.k_clusters,
+                "rerank": args.rerank,
+                "dense_rerank": args.dense_rerank,
+                "cigar": args.cigar,
+                "mapq": args.mapq,
+            }.items()
+            if v not in (None, False)
+        }
+        n = serve(args.index_prefix, args.ref_file, defaults=defaults, device=device)
+        print(f"[SERVE] answered {n} requests", file=sys.stderr)
+        return 0
+
+    if args.cmd == "inference":
+        return _inference(args, device)
 
     if args.cmd == "finetune":
         from deepreadmapper_tpu_torch.models.encoder import load_params

@@ -165,22 +165,37 @@ class Encoder(nn.Module):
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
         return encode_tokens_impl(self.params(), tokens, dtype)
 
-    def encode_packed(self, wire: torch.Tensor) -> torch.Tensor:
+    def encode_packed(self, wire: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """48-byte wire rows -> fp32 embeddings; tokenization runs on wire's
         device."""
-        return self.encode_tokens(tokens_from_packed(wire))
+        return self.encode_tokens(tokens_from_packed(wire), dtype)
 
     forward = encode_tokens
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 class Vectorizer:
-    """Strings / bytes / wire rows -> fp32 embeddings, in device batches."""
+    """Strings / bytes / wire rows -> fp32 embeddings, in device batches.
+
+    dtype ("float32" or "bfloat16") is the GRU's input dtype, as the JAX
+    Vectorizer's; the gates, the carry and the output stay fp32.  max_len
+    is the token count per sequence: the 48-byte wire and the device
+    tokenizer hold exactly MAX_LEN tokens, so any other max_len tokenizes
+    on the host."""
 
     def __init__(self, params: dict | None = None, device_batch: int = 8192,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, max_len: int = MAX_LEN,
+                 dtype: str = "float32"):
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype {dtype!r}: one of {sorted(_DTYPES)}")
         self.device = resolve_device(device)
         self.encoder = Encoder(params).to(self.device)
         self.device_batch = device_batch
+        self.max_len = max_len
+        self.dtype = dtype
 
     def _dispatch_batches(self, rows: np.ndarray, encode_one, device_out: bool):
         """Encode rows in device batches of at most device_batch (the last
@@ -200,23 +215,31 @@ class Vectorizer:
 
     def vectorize_tokens(self, tokens: np.ndarray, device_out: bool = False):
         """tokens int [N, T] -> fp32 [N, 128].  Tokens travel as int16."""
+        dt = _DTYPES[self.dtype]
         return self._dispatch_batches(
-            np.asarray(tokens).astype(np.int16), self.encoder.encode_tokens,
-            device_out,
+            np.asarray(tokens).astype(np.int16),
+            lambda t: self.encoder.encode_tokens(t, dt), device_out,
         )
 
     def vectorize(self, seqs: list[str]) -> np.ndarray:
         from deepreadmapper_tpu_torch import tokenizer as tok
 
-        return self.vectorize_tokens(tok.tokenize_strings(seqs, MAX_LEN))
+        return self.vectorize_tokens(tok.tokenize_strings(seqs, self.max_len))
 
     def vectorize_wrapped_bytes(self, mat: np.ndarray, lengths: np.ndarray):
-        """'<'-wrapped byte matrix -> embeddings via the 48-byte wire upload
-        and the device tokenizer."""
+        """'<'-wrapped byte matrix -> embeddings: the 48-byte wire upload and
+        the device tokenizer at MAX_LEN, host tokenization otherwise."""
+        if self.max_len != MAX_LEN:
+            from deepreadmapper_tpu_torch import tokenizer as tok
+
+            return self.vectorize_tokens(
+                tok.tokenize_bytes_fast(mat, lengths, self.max_len))
         from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped
 
         return self.vectorize_wire(pack_wrapped(mat, lengths))
 
     def vectorize_wire(self, wire: np.ndarray, device_out: bool = False):
         """Pre-packed 48-byte wire rows -> embeddings (tokenized on device)."""
-        return self._dispatch_batches(wire, self.encoder.encode_packed, device_out)
+        dt = _DTYPES[self.dtype]
+        return self._dispatch_batches(
+            wire, lambda w: self.encoder.encode_packed(w, dt), device_out)

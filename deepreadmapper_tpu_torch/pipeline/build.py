@@ -9,6 +9,7 @@ either package loads an index the other built.
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import time
@@ -23,6 +24,7 @@ from deepreadmapper_tpu_torch.io import fasta as fasta_io
 from deepreadmapper_tpu_torch.io.configstore import save_config
 from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes
 from deepreadmapper_tpu_torch.io.fileio import true_ext
+from deepreadmapper_tpu_torch.io.npy_stream import NpyStreamWriter
 from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
 from deepreadmapper_tpu_torch.io.results import load_embeddings_npy
 from deepreadmapper_tpu_torch.utils.memory import estimate_window_count
@@ -82,9 +84,20 @@ def _embed_record_windows(rec, ref_len: int, stride: int, first: int, n: int,
     """Embed windows [first, first+n) of ONE record -> [2n, 128]
     (interleaved fwd/rev, row = 2*window + strand).  transform (e.g. int8
     quantization) applies on the device before any download."""
-    emb = vectorizer.vectorize_wire(
-        window_wire(rec, ref_len, stride, first, n), device_out=True
-    )
+    if vectorizer.max_len == tok.MAX_LEN:
+        emb = vectorizer.vectorize_wire(
+            window_wire(rec, ref_len, stride, first, n), device_out=True
+        )
+    else:  # the wire holds MAX_LEN tokens: other lengths tokenize on the host
+        if native.available():
+            tokens = native.tokenize_windows(rec, ref_len, stride, first, n,
+                                             vectorizer.max_len)
+        else:
+            positions = (first + np.arange(n, dtype=np.int64)) * stride
+            mat, lengths = fasta_io.window_byte_matrix(rec, positions, ref_len,
+                                                       vectorizer.max_len)
+            tokens = tok.tokenize_bytes(mat, lengths, vectorizer.max_len)
+        emb = vectorizer.vectorize_tokens(tokens, device_out=True)
     if transform is not None:
         emb = transform(emb)
     return emb if device_out else emb.cpu().numpy()
@@ -127,6 +140,128 @@ def embed_fasta_windows(
     return out if device_out else out.cpu().numpy()
 
 
+def stream_codes_resumable(
+    records: list[np.ndarray],
+    ref_len: int,
+    stride: int,
+    vectorizer: Vectorizer,
+    transform,
+    cache_path: str,
+    n_cols: int,
+    dtype: str,
+    window_chunk: int = 65536,
+) -> np.ndarray:
+    """Embed every (fwd, rev) window, appending each chunk, transformed on
+    the device (quantized or PQ-encoded), to a resumable npy on disk; chunks
+    already there are skipped without an embed.  The chunk grid is fixed
+    (record order x window_chunk), so after a crash the stream truncates
+    back to the last whole chunk and goes on from there.  Returns the code
+    matrix, memory-mapped copy-on-write.  Counterpart of build.stream_codes_resumable."""
+    total = 2 * sum(fasta_io.num_windows(len(r), ref_len, stride) for r in records)
+    w = NpyStreamWriter.resume(cache_path, total, n_cols, dtype)
+    if w.rows_written:
+        print(f"[BUILD INDEX] resuming embed stream: {w.rows_written}/{total} "
+              "rows already on disk")
+    cursor = 0
+    with Progress(total, "[BUILD] embed windows") as prog:
+        for rec in records:
+            nw = fasta_io.num_windows(len(rec), ref_len, stride)
+            for start in range(0, nw, window_chunk):
+                n = min(window_chunk, nw - start)
+                if w.rows_written >= cursor + 2 * n:
+                    cursor += 2 * n  # chunk fully on disk from an earlier run
+                    prog.update(2 * n)
+                    continue
+                if w.rows_written > cursor:
+                    w.truncate_to(cursor)  # half-written chunk: redo it
+                w.append(_embed_record_windows(rec, ref_len, stride, start, n,
+                                               vectorizer, transform=transform))
+                cursor += 2 * n
+                prog.update(2 * n)
+    w.close()
+    # copy-on-write: writable for torch.from_numpy, the file never changes
+    return np.load(cache_path, mmap_mode="c")
+
+
+def _resume_cache(index_prefix: str, params: dict, resume: bool):
+    """Open (or validate) the crash-resume cache of a streaming build: the
+    cache dir, or None when resume is off.  Its state file pins every
+    parameter that shapes the embed stream; a mismatch means the partial
+    codes on disk describe another index, so the build is refused."""
+    if not resume:
+        return None
+    cache = os.path.join(index_prefix, ".build_cache")
+    os.makedirs(cache, exist_ok=True)
+    state_path = os.path.join(cache, "state.json")
+    if os.path.exists(state_path):
+        with open(state_path) as f:
+            old = json.load(f)
+        if old != params:
+            raise ValueError(
+                f"--resume: cached build state {old} does not match "
+                f"requested {params}; delete {cache} to restart"
+            )
+    else:
+        with open(state_path, "w") as f:
+            json.dump(params, f)
+    return cache
+
+
+def _drop_cache(cache) -> None:
+    """Remove the resume cache once the index is saved (an open mmap of its
+    codes stays valid)."""
+    if cache:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def stream_embed_fasta_to_npy(fasta_path: str, out_path: str, ref_len: int,
+                              stride: int, vectorizer: Vectorizer,
+                              window_chunk: int = 65536) -> int:
+    """Embed every window of a FASTA straight into a pre-headered npy, a
+    chunk at a time (the ``inference`` subcommand): memory stays bounded
+    whatever the genome's size.  Returns the rows written."""
+    records = fasta_io.parse_fasta_records(fasta_path)
+    total = sum(2 * fasta_io.num_windows(len(r), ref_len, stride) for r in records)
+    with NpyStreamWriter(out_path, total, OUT_SIZE) as w, \
+            Progress(total, "[INFERENCE] embed windows") as prog:
+        for rec in records:
+            nw = fasta_io.num_windows(len(rec), ref_len, stride)
+            for start in range(0, nw, window_chunk):
+                n = min(window_chunk, nw - start)
+                w.append(_embed_record_windows(rec, ref_len, stride, start, n,
+                                               vectorizer))
+                prog.update(2 * n)
+    return total
+
+
+def stream_embed_seqs_to_npy(path: str, out_path: str, vectorizer: Vectorizer,
+                             batch: int = 65536) -> int:
+    """Embed a sequence file (FASTQ or txt: one embedding per read) in
+    batches of ``batch`` straight into a pre-headered npy (the
+    ``inference`` subcommand's batch_size).  Returns the rows written."""
+    if true_ext(path) in FASTQ_EXTS:
+        mat, lengths, _ = parse_fastq_bytes(path)
+
+        def embed_slice(s, e):
+            return vectorizer.vectorize_wrapped_bytes(mat[s:e], lengths[s:e])
+
+        total = mat.shape[0]
+    else:
+        seqs = read_txt(path)
+
+        def embed_slice(s, e):
+            return vectorizer.vectorize(seqs[s:e])
+
+        total = len(seqs)
+    with NpyStreamWriter(out_path, total, OUT_SIZE) as w, \
+            Progress(total, "[INFERENCE] embed reads") as prog:
+        for s in range(0, total, batch):
+            e = min(s + batch, total)
+            w.append(embed_slice(s, e))
+            prog.update(e - s)
+    return total
+
+
 def embed_input_file(path: str, ref_len: int, stride: int,
                      vectorizer: Vectorizer) -> np.ndarray:
     """Embeddings of a reference input: .npy as is, FASTA windows, or one
@@ -146,7 +281,7 @@ def embed_input_file(path: str, ref_len: int, stride: int,
 
 
 def _pq_stream_encode(records, ref_len: int, stride: int, cfg: BuildConfig,
-                      vectorizer: Vectorizer):
+                      vectorizer: Vectorizer, cache: str | None = None):
     """Two-pass stream-encode of a FASTA reference for PQFLAT and IVFPQ.
 
     Pass A embeds an evenly spaced window sample (the reference trains on a
@@ -154,31 +289,49 @@ def _pq_stream_encode(records, ref_len: int, stride: int, cfg: BuildConfig,
     centroids, so the [m, n_train, ksub] fp32 assignment tensor stays ~2 GB)
     and trains PQ or OPQ on the device.  Pass B re-streams every window and
     encodes each embedding chunk to codes on the device, so only the
-    8 B/window codes reach the host.  Returns (codes [N, m] uint8,
-    codebook, rotation or None)."""
-    nv_est = sum(2 * fasta_io.num_windows(len(r), ref_len, stride) for r in records)
-    target = max(1, min(int(nv_est * cfg.sample_rate), 262_144))
-    # the sample counts both strands like nv_est; ceil so it never exceeds
-    # ~target (floor could double it)
-    step = max(1, -(-nv_est // target))
-    train = embed_fasta_windows(records, ref_len, stride * step, vectorizer,
-                                device_out=True)
-    if train.shape[0] == 0:
-        raise ValueError("No sequences found in the reference")
-    rot = rot_dev = None
-    if cfg.opq:
-        cb, rot = pq_ops.train_opq(train, m=cfg.m_pq, nbits=cfg.nbits,
-                                   iters=cfg.opq_iters, seed=cfg.seed,
-                                   device=vectorizer.device)
-        rot_dev = torch.from_numpy(rot).to(vectorizer.device)
+    8 B/window codes reach the host.  With a resume cache, the trained
+    codebook is saved there and reused by a rerun, and pass B streams into
+    the cache.  Returns (codes [N, m] uint8, codebook, rotation or None)."""
+    cb_path = cache and os.path.join(cache, "codebook.npz")
+    if cb_path and os.path.exists(cb_path):
+        # pass A ran before the crash: reuse its codebook
+        with np.load(cb_path) as z:
+            cb = pq_ops.PQCodebook(torch.from_numpy(z["centroids"]).to(vectorizer.device))
+            rot = z["rot"] if "rot" in z.files else None
+        print("[BUILD INDEX] resume: reusing trained PQ codebook")
     else:
-        cb = pq_ops.train_pq(train, m=cfg.m_pq, nbits=cfg.nbits,
-                             iters=cfg.kmeans_iters, seed=cfg.seed)
-    del train
-    codes = embed_fasta_windows(
-        records, ref_len, stride, vectorizer,
-        chunk_transform=lambda e: pq_ops.encode_device(e, cb, rot_dev),
-    )
+        nv_est = sum(2 * fasta_io.num_windows(len(r), ref_len, stride) for r in records)
+        target = max(1, min(int(nv_est * cfg.sample_rate), 262_144))
+        # the sample counts both strands like nv_est; ceil so it never
+        # exceeds ~target (floor could double it)
+        step = max(1, -(-nv_est // target))
+        train = embed_fasta_windows(records, ref_len, stride * step, vectorizer,
+                                    device_out=True)
+        if train.shape[0] == 0:
+            raise ValueError("No sequences found in the reference")
+        rot = None
+        if cfg.opq:
+            cb, rot = pq_ops.train_opq(train, m=cfg.m_pq, nbits=cfg.nbits,
+                                       iters=cfg.opq_iters, seed=cfg.seed,
+                                       device=vectorizer.device)
+        else:
+            cb = pq_ops.train_pq(train, m=cfg.m_pq, nbits=cfg.nbits,
+                                 iters=cfg.kmeans_iters, seed=cfg.seed)
+        del train
+        if cb_path:
+            extra = {} if rot is None else {"rot": np.asarray(rot)}
+            np.savez(cb_path, centroids=cb.centroids.cpu().numpy(), **extra)
+    rot_dev = None if rot is None else torch.from_numpy(rot).to(vectorizer.device)
+
+    def encode(e):
+        return pq_ops.encode_device(e, cb, rot_dev)
+
+    if cache:
+        codes = stream_codes_resumable(records, ref_len, stride, vectorizer, encode,
+                                       os.path.join(cache, "codes.npy"), cfg.m_pq, "|u1")
+    else:
+        codes = embed_fasta_windows(records, ref_len, stride, vectorizer,
+                                    chunk_transform=encode)
     return codes, cb, rot
 
 
@@ -193,6 +346,7 @@ def build_index(
     timings: dict | None = None,
     weights: str | None = None,
     vectorizer: Vectorizer | None = None,
+    resume: bool = False,
 ) -> dict:
     """Build + persist an index directory; returns the saved config.
     device defaults to the CUDA device (raises without one).  timings, when
@@ -201,7 +355,10 @@ def build_index(
     (``finetune`` output); the windows are embedded with it and it is
     copied to ``<prefix>/encoder.npz``, which the pipeline then loads for
     the queries.  vectorizer: an encoder already loaded (it must equal
-    weights= when both are given)."""
+    weights= when both are given).  resume=True makes the streaming builds
+    from FASTA (INT8FLAT, IVFINT8, PQFLAT, IVFPQ) crash-resumable: the code
+    chunks append to ``<prefix>/.build_cache/`` as they leave the device,
+    and a rerun with the same arguments skips what is already there."""
     if index_type not in PORTED_ENGINES:
         raise not_ported(f"index type {index_type}")
     device = resolve_device(device)
@@ -233,10 +390,18 @@ def build_index(
         print(f"[BUILD INDEX] ~{nv} vectors; estimated index memory "
               f"{total / 1e6:.1f} MB ({detail})")
 
+    cache = _resume_cache(
+        index_prefix,
+        {"ref_file": os.path.abspath(ref_file), "ref_len": ref_len, "stride": stride,
+         "index_type": index_type, "m_pq": cfg.m_pq, "nbits": cfg.nbits,
+         "opq": bool(cfg.opq and index_type in _PQ_ENGINES), "seed": cfg.seed},
+        resume and ext in FASTA_EXTS and index_type in _PQ_ENGINES + _INT8_ENGINES,
+    )
     t0 = time.perf_counter()
     if index_type in _PQ_ENGINES and ext in FASTA_EXTS:
         records = fasta_io.parse_fasta_records(ref_file)
-        codes, cb, rot = _pq_stream_encode(records, ref_len, stride, cfg, vectorizer)
+        codes, cb, rot = _pq_stream_encode(records, ref_len, stride, cfg, vectorizer,
+                                           cache)
         t["embed"] = time.perf_counter() - t0
         if codes.shape[0] == 0:
             raise ValueError(f"No sequences found in file: {ref_file}")
@@ -251,10 +416,17 @@ def build_index(
         # only the 128 B/window codes are downloaded.  Encoder outputs are
         # tanh-bounded, so the fixed 1/127 scale is what build() would derive.
         records = fasta_io.parse_fasta_records(ref_file)
-        codes = embed_fasta_windows(
-            records, ref_len, stride, vectorizer,
-            chunk_transform=lambda e: quantize(e, INT8_SCALE),
-        )
+        if cache:
+            codes = stream_codes_resumable(
+                records, ref_len, stride, vectorizer,
+                lambda e: quantize(e, INT8_SCALE),
+                os.path.join(cache, "codes.npy"), OUT_SIZE, "|i1",
+            )
+        else:
+            codes = embed_fasta_windows(
+                records, ref_len, stride, vectorizer,
+                chunk_transform=lambda e: quantize(e, INT8_SCALE),
+            )
         t["embed"] = time.perf_counter() - t0
         if codes.shape[0] == 0:
             raise ValueError(f"No sequences found in file: {ref_file}")
@@ -299,5 +471,6 @@ def build_index(
         shutil.copyfile(weights, os.path.join(index_prefix, "encoder.npz"))
     engine.save(index_prefix)
     save_config(config, index_prefix)  # last: config.txt marks a complete build
+    _drop_cache(cache)
     t["save"] = time.perf_counter() - t0
     return config

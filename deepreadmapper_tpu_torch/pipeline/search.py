@@ -9,7 +9,9 @@ writes them; SAM holds the post-processed candidates.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import re
 import time
 
 import numpy as np
@@ -19,7 +21,8 @@ from deepreadmapper_tpu_torch import tokenizer as tok
 from deepreadmapper_tpu_torch.config import SearchConfig
 from deepreadmapper_tpu_torch.io import fasta as fasta_io
 from deepreadmapper_tpu_torch.io import sam as sam_io
-from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes
+from deepreadmapper_tpu_torch.io.bam import sam_to_bam
+from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes, parse_fastq_quals
 from deepreadmapper_tpu_torch.io.fileio import true_ext
 from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
 from deepreadmapper_tpu_torch.io.results import load_embeddings_npy, save_results
@@ -29,6 +32,9 @@ from deepreadmapper_tpu_torch.index.registry import load_index
 from deepreadmapper_tpu_torch.models.encoder import Vectorizer, load_params
 from deepreadmapper_tpu_torch.pipeline import postprocess as pp
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
+from deepreadmapper_tpu_torch.utils.progress import Progress
+
+_CIGAR_RUN = re.compile(r"(\d+)([MID])")
 
 
 def _load_queries(path: str, vectorizer: Vectorizer):
@@ -52,6 +58,140 @@ def _load_queries(path: str, vectorizer: Vectorizer):
     raise ValueError(f"Unsupported query input: {path}")
 
 
+def _primary_alignment_cigars(
+    query_seqs, primary_ids, genome, ref_len, multi, dense_off, base_off
+):
+    """Real SW-traceback CIGARs (native) for each query's primary hit, in
+    reference orientation: reverse-strand alignments reverse their op runs
+    and swap soft clips, and the returned pos_off shifts the SAM POS to the
+    alignment's leftmost reference base.  Returns (cigars [Q], pos_off [Q],
+    tags [Q], each a "\tNM:i:..\tMD:Z:..\tAS:i:.." suffix from
+    io.sam.alignment_tags) or (None, None, None) when the native library is
+    unavailable.  Counterpart of search._primary_alignment_cigars."""
+    if not native.available():
+        print("[MAIN] WARNING: --cigar needs the native library; skipping")
+        return None, None, None
+    ids = np.asarray(primary_ids, np.int64)
+    fetch_ids = (
+        fasta_io.translate_window_ids(ids, dense_off, base_off) if multi else ids
+    )
+    w_mat, w_lens = fasta_io.fetch_windows_by_id(
+        genome, np.maximum(fetch_ids, 0), ref_len, max_len=ref_len, wrap=False
+    )
+    reads = [q[1:-1] if q.startswith("<") and q.endswith(">") else q
+             for q in query_seqs]
+    a_mat, a_lens = tok.strings_to_bytes(reads)
+    _, a_span, b_span, cigs = native.sw_cigar(a_mat, a_lens, w_mat, w_lens)
+    cigars: list[str] = []
+    tags: list[str] = []
+    pos_off = np.zeros(len(reads), np.int64)
+    for i in range(len(reads)):
+        body = cigs[i]
+        if not body or ids[i] < 0:
+            cigars.append("")  # overflow / invalid -> pseudo CIGAR
+            tags.append("")
+            continue
+        alen = int(a_lens[i])
+        a0, a1 = int(a_span[i, 0]), int(a_span[i, 1])
+        b0, b1 = int(b_span[i, 0]), int(b_span[i, 1])
+        runs = [(int(n), op) for n, op in _CIGAR_RUN.findall(body)]
+        # NM/MD/AS from the native-orientation alignment; a reverse-strand
+        # MD is re-expressed in forward-reference orientation by the helper
+        nm, md, as_ = sam_io.alignment_tags(
+            a_mat[i], w_mat[i], a0, b0, runs, reverse=bool(ids[i] & 1)
+        )
+        tags.append(f"\tNM:i:{nm}\tMD:Z:{md}\tAS:i:{as_}")
+        if ids[i] & 1:  # reverse strand: reference orientation reverses ops
+            body = "".join(f"{n}{op}" for n, op in reversed(runs))
+            left, right = alen - a1, a0
+            pos_off[i] = ref_len - b1
+        else:
+            left, right = a0, alen - a1
+            pos_off[i] = b0
+        cigars.append((f"{left}S" if left else "") + body
+                      + (f"{right}S" if right else ""))
+    return cigars, pos_off, tags
+
+
+# Copied verbatim from deepreadmapper_tpu/pipeline/search.py (that module
+# imports jax): the empirical MAPQ recalibration table.  Raw margin-quality
+# bin -> observed mis-mapping rate, measured by
+# scripts/eval_mapq_calibration.py on the hard synthetic (tandem arrays 5% +
+# dispersed 1%-divergent repeat families 8%, read err 1%, INT8FLAT, 2 Mbp,
+# seeds 0 fit / 1 validate), pooled to a monotone table (PAVA).  Keys: raw
+# bin lower edges; values: calibrated MAPQ for the bin.
+_MAPQ_CAL_BINS = np.array([0, 1, 10, 20, 30, 40, 50, 60], np.int32)
+_MAPQ_CAL_VALS = np.array([0, 3, 5, 12, 19, 19, 24, 24], np.int32)
+
+
+def calibrate_mapq(q_raw: np.ndarray) -> np.ndarray:
+    """Map raw margin MAPQ through the fitted monotone table (see
+    _MAPQ_CAL_BINS).  Interpolation within a bin keeps the order of raw
+    values.  Copied from the JAX package's search.calibrate_mapq."""
+    q = np.asarray(q_raw, np.float64)
+    idx = np.clip(
+        np.searchsorted(_MAPQ_CAL_BINS, q, side="right") - 1, 0,
+        len(_MAPQ_CAL_BINS) - 1,
+    )
+    lo_b = _MAPQ_CAL_BINS[idx].astype(np.float64)
+    hi_b = np.concatenate([_MAPQ_CAL_BINS[1:], [61]])[idx].astype(np.float64)
+    lo_v = _MAPQ_CAL_VALS[idx].astype(np.float64)
+    hi_v = np.concatenate([_MAPQ_CAL_VALS[1:], [_MAPQ_CAL_VALS[-1] + 1]])[
+        idx
+    ].astype(np.float64)
+    frac = np.where(hi_b > lo_b, (q - lo_b) / (hi_b - lo_b), 0.0)
+    return np.clip(np.rint(lo_v + frac * (hi_v - lo_v)), 0, 60).astype(np.int32)
+
+
+def compute_mapq(
+    ids: np.ndarray,
+    vals: np.ndarray,
+    ref_len: int,
+    higher_is_better: bool = False,
+    dense_off: np.ndarray | None = None,
+) -> np.ndarray:
+    """Margin-based mapping quality for each query's primary candidate:
+    how much better the best placement scores than the best placement at a
+    different locus.  "Same locus" = same strand, same record, position
+    within ref_len of the primary.  dense_off (multi-record references):
+    per-record cumulative window offsets, so adjacency across a chromosome
+    boundary is not taken for the same locus.
+
+    mapq = round(60 * relative margin), clipped to [0, 60]; 60 when no
+    competing locus is among the candidates; 0 for an exact tie or an
+    invalid (-1) primary.  Copied from the JAX package's
+    search.compute_mapq (float64 host arithmetic)."""
+    ids = np.asarray(ids, np.int64)
+    vals = np.asarray(vals, np.float64)
+    nq, k = ids.shape
+    out = np.full(nq, 60, np.int32)
+    if k < 2:
+        out[ids[:, 0] < 0] = 0
+        return out
+    pos = ids >> 1
+    same_locus = (np.abs(pos - pos[:, :1]) <= ref_len) & (
+        (ids & 1) == (ids[:, :1] & 1)
+    )
+    if dense_off is not None:
+        rec = np.searchsorted(dense_off, pos, side="right") - 1
+        same_locus &= rec == rec[:, :1]
+    competitor = ~same_locus & (ids >= 0)
+    has = competitor.any(axis=1)
+    j2 = np.argmax(competitor, axis=1)
+    best = vals[:, 0]
+    second = vals[np.arange(nq), j2]
+    if higher_is_better:
+        margin = best - second
+        scale = np.maximum(np.abs(best), 1e-9)
+    else:
+        margin = second - best
+        scale = np.maximum(np.abs(second), 1e-9)
+    q = np.clip(np.rint(60.0 * margin / scale), 0, 60).astype(np.int32)
+    out[has] = q[has]
+    out[ids[:, 0] < 0] = 0
+    return out
+
+
 def vectorizer_for_index(index_prefix: str, config: dict,
                          vectorizer: Vectorizer | None = None,
                          device=None) -> Vectorizer:
@@ -67,6 +207,32 @@ def vectorizer_for_index(index_prefix: str, config: dict,
     return Vectorizer(device=device)
 
 
+def _search(engine, query_emb, k_clusters, ef, search_stats):
+    """engine.search, with the search-effort counters where the engine keeps
+    them (the IVF engines); others answer without stats."""
+    if search_stats is not None and isinstance(engine, IVFInt8Index):
+        return engine.search(query_emb, k_clusters, ef, stats=search_stats)
+    return engine.search(query_emb, k_clusters, ef)
+
+
+def _profiler(profile_dir: str | None, device):
+    """torch.profiler over the embed and the search (host and, on a card,
+    device activity), or a null context.  The JAX package traces the
+    search with jax.profiler; here the trace also covers the query embed,
+    so it shows both kernels of the main path."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "pipeline.pt.trace.json")
+    return profile(activities=acts,
+                   on_trace_ready=lambda prof: prof.export_chrome_trace(path))
+
+
 def run_pipeline(
     index_prefix: str,
     query_file: str,
@@ -80,9 +246,21 @@ def run_pipeline(
     rerank: str = "l2",
     dense_rerank: bool = False,
     write_sam: bool = True,
+    cigar: bool = False,
+    mapq: bool = False,
+    mapq_calibrated: bool = False,
+    long_reads: bool = False,
+    qual: bool = False,
+    sort: bool = False,
+    bam: bool = False,
+    mark_dups: bool = False,
+    read_group: str | None = None,
+    profile_dir: str | None = None,
     vectorizer: Vectorizer | None = None,
-    device=None,
+    search_cfg: SearchConfig | None = None,
+    preloaded: tuple | None = None,
     search_stats: dict | None = None,
+    device=None,
 ) -> dict:
     """Run the pipeline; returns a timing/result summary.
 
@@ -94,18 +272,27 @@ def run_pipeline(
     then hold the reranked sqrt-L2 results.  Otherwise they hold the raw
     search results.  ef is nprobe for the IVF engines; search_stats, when a
     dict, receives their search-effort counters (other engines ignore it).
+
+    The SAM options follow the JAX package: cigar (real SW-traceback CIGARs
+    and NM/MD/AS on primaries), mapq (margin MAPQ; mapq_calibrated maps it
+    through the fitted table on the non-streaming L2 path), qual (FASTQ
+    qualities), read_group (@RG + RG:Z), sort, mark_dups, bam (results.bam,
+    with a .bai when sorted).  use_streaming reranks and appends the SAM
+    per search_cfg.query_batch_size reads, and saves no npy.  profile_dir
+    writes a torch.profiler Chrome trace of the embed and the search.
+    preloaded=(engine, config) skips the index load (the serve daemon).
     device defaults to the CUDA device (raises without one)."""
     if rerank not in ("l2", "sw"):
         raise ValueError(f"unknown rerank {rerank!r} (l2 | sw)")
-    if use_streaming:
-        raise not_ported("use_streaming")
+    if long_reads:
+        raise not_ported("--long-reads")
     device = resolve_device(device)
-    scfg = SearchConfig()
+    scfg = search_cfg or SearchConfig()
     ef = ef if ef is not None else scfg.ef
     k = k if k is not None else scfg.k
 
     t0 = time.time()
-    engine, config = load_index(index_prefix, device)
+    engine, config = preloaded if preloaded else load_index(index_prefix, device)
     ref_len = int(config["ref_len"])
     stride = int(config["stride"])
     if stride == 1:
@@ -115,26 +302,48 @@ def run_pipeline(
     t_index = time.time() - t0
 
     vectorizer = vectorizer_for_index(index_prefix, config, vectorizer, device)
-    t0 = time.time()
-    query_emb, query_seqs, query_ids = _load_queries(query_file, vectorizer)
-    t_embed = time.time() - t0
-
-    t0 = time.time()
-    if search_stats is not None and isinstance(engine, IVFInt8Index):
-        neighbors, distances = engine.search(query_emb, k_clusters, ef,
-                                             stats=search_stats)
-    else:
-        neighbors, distances = engine.search(query_emb, k_clusters, ef)
-    t_search = time.time() - t0
+    with _profiler(profile_dir, device):
+        t0 = time.time()
+        query_emb, query_seqs, query_ids = _load_queries(query_file, vectorizer)
+        t_embed = time.time() - t0
+        t0 = time.time()
+        neighbors, distances = _search(engine, query_emb, k_clusters, ef,
+                                       search_stats)
+        t_search = time.time() - t0
 
     os.makedirs(output_dir, exist_ok=True)
     sam_file = os.path.join(output_dir, "results.sam")
     have_seqs = query_seqs is not None
+    if use_streaming and not write_sam:
+        # streaming exists to bound SAM memory; without SAM it would rerank
+        # per batch and emit nothing at all
+        print("[MAIN] WARNING: use_streaming without SAM output has nothing to "
+              "stream; falling back to the non-streaming path")
+        use_streaming = False
+    if cigar and not have_seqs:
+        print("[MAIN] WARNING: --cigar ignored (precomputed query embeddings "
+              "carry no sequences to align)")
+        cigar = False
+    if mapq and not have_seqs:
+        print("[MAIN] WARNING: --mapq ignored (no SAM output without query "
+              "sequences)")
+        mapq = False
     if dense_rerank and stride == 1 and (not have_seqs or rerank == "sw"):
         print("[MAIN] WARNING: --dense-rerank ignored ("
               + ("precomputed query embeddings carry no sequences"
                  if not have_seqs else "SW rerank already reranks at stride 1")
               + "); saving raw search results")
+    quals = None
+    if qual:
+        if have_seqs and true_ext(query_file) in FASTQ_EXTS:
+            quals = parse_fastq_quals(query_file)
+        else:
+            print("[MAIN] WARNING: --qual needs FASTQ queries; ignored")
+    pg = (f"pipeline {index_prefix} {query_file} ef={ef} k={k}"
+          f" k_clusters={k_clusters} rerank={rerank}"
+          + (" dense_rerank" if dense_rerank else "")
+          + (" cigar" if cigar else "")
+          + (" mapq" if mapq else ""))
 
     t0 = time.time()
     final_ids = final_d = None
@@ -167,6 +376,8 @@ def run_pipeline(
             else:
                 # number of dense windows x 2 strands
                 bound = 2 * max(0, int(genome.size) - ref_len + 1)
+        sam_kw = dict(record_names=rec_names, record_lens=rec_lens,
+                      dense_off=dense_off, pg=pg, quals=quals, rg=read_group)
 
         def embed_windows(unique_ids: np.ndarray):
             if multi:
@@ -175,6 +386,13 @@ def run_pipeline(
                 )
             # candidates are re-embedded WRAPPED, the space the index was
             # built in; the pool stays on the device for the rerank
+            if vectorizer.max_len != tok.MAX_LEN:
+                mat, lengths = fasta_io.fetch_windows_by_id(
+                    genome, unique_ids, ref_len, vectorizer.max_len, wrap=True
+                )
+                return vectorizer.vectorize_tokens(
+                    tok.tokenize_bytes_fast(mat, lengths, vectorizer.max_len),
+                    device_out=True)
             if native.available():
                 wire = native.pack_windows_by_id(genome, ref_len, unique_ids)
             else:
@@ -183,6 +401,10 @@ def run_pipeline(
                 )
                 wire = pack_wrapped_numpy(mat, lengths)
             return vectorizer.vectorize_wire(wire, device_out=True)
+
+        def cigars_of(seqs, primary_ids):
+            return _primary_alignment_cigars(seqs, primary_ids, genome, ref_len,
+                                             multi, dense_off, base_off)
 
         if rerank == "sw":
             def fetch_windows(ids: np.ndarray):
@@ -201,33 +423,94 @@ def run_pipeline(
             )
             print(f"[MAIN] sw rerank: fetch {sw_timings['fetch']:.3f}s | "
                   f"score {sw_timings['sw']:.3f}s | sort {sw_timings['sort']:.3f}s")
+            if write_sam:
+                mq = (compute_mapq(final_ids, final_d, ref_len,
+                                   higher_is_better=True, dense_off=dense_off)
+                      if mapq else None)
+                sam_io.write_sam(query_seqs, query_ids, final_ids.ravel(), "ref",
+                                 ref_len, k, sam_file, mapq=mq, **sam_kw)
+        elif use_streaming:
+            bs = scfg.query_batch_size
+            nq = query_emb.shape[0]
+            sprog = Progress(nq, "[MAIN] rerank+SAM reads")
+            for start in range(0, nq, bs):
+                end = min(start + bs, nq)
+                ids_b, d_b = pp.post_process_l2(
+                    neighbors[start:end], distances[start:end],
+                    query_emb[start:end], embed_windows, stride, k, k_clusters,
+                    bound, force_rerank=dense_rerank, sparse_off=sparse_off,
+                    dense_off=dense_off,
+                )
+                pc = po = mq = pt = None
+                if cigar:
+                    pc_b, po_b, pt_b = cigars_of(query_seqs[start:end], ids_b[:, 0])
+                    if pc_b is not None:
+                        # per-batch lists are indexed by the GLOBAL query
+                        # number inside format_sam_records
+                        pc = [""] * start + pc_b
+                        pt = [""] * start + pt_b
+                        po = np.concatenate([np.zeros(start, np.int64), po_b])
+                if mapq:
+                    mq = np.concatenate([
+                        np.zeros(start, np.int32),
+                        compute_mapq(ids_b, d_b, ref_len, dense_off=dense_off),
+                    ])
+                sam_io.write_sam(
+                    query_seqs[start:end], query_ids, ids_b.ravel(), "ref",
+                    ref_len, k, sam_file, append=start > 0,
+                    write_header=start == 0, query_offset=start,
+                    primary_cigars=pc, primary_pos_off=po, primary_tags=pt,
+                    mapq=mq, **sam_kw,
+                )
+                sprog.update(end - start)
+            sprog.close()
         else:
             final_ids, final_d = pp.post_process_l2(
                 neighbors, distances, query_emb, embed_windows, stride, k,
                 k_clusters, bound, force_rerank=dense_rerank,
                 sparse_off=sparse_off, dense_off=dense_off,
             )
-        if write_sam:
-            pg = (f"pipeline {index_prefix} {query_file} ef={ef} k={k}"
-                  f" k_clusters={k_clusters} rerank={rerank}"
-                  + (" dense_rerank" if dense_rerank else ""))
-            sam_io.write_sam(
-                query_seqs, query_ids, final_ids.ravel(), "ref", ref_len, k,
-                sam_file, record_names=rec_names, record_lens=rec_lens,
-                dense_off=dense_off, pg=pg,
-            )
+            if write_sam:
+                pc = po = mq = pt = None
+                if cigar:
+                    pc, po, pt = cigars_of(query_seqs, final_ids[:, 0])
+                if mapq:
+                    mq = compute_mapq(final_ids, final_d, ref_len,
+                                      dense_off=dense_off)
+                    if mapq_calibrated:
+                        mq = calibrate_mapq(mq)
+                sam_io.write_sam(
+                    query_seqs, query_ids, final_ids.ravel(), "ref", ref_len, k,
+                    sam_file, primary_cigars=pc, primary_pos_off=po,
+                    primary_tags=pt, mapq=mq, **sam_kw,
+                )
+    if write_sam and os.path.exists(sam_file):
+        if sort:
+            sam_io.sort_sam_file(sam_file)
+        if mark_dups:
+            nd = sam_io.mark_duplicates(sam_file)
+            if nd:
+                print(f"[MAIN] marked {nd} duplicate lines (FLAG 0x400)")
+        if bam:
+            bam_file = os.path.join(output_dir, "results.bam")
+            # a BAI is valid only over coordinate-sorted records; drop a
+            # stale index from an earlier sorted run into the same dir
+            if not sort and os.path.exists(bam_file + ".bai"):
+                os.remove(bam_file + ".bai")
+            sam_to_bam(sam_file, bam_file,
+                       bai_path=bam_file + ".bai" if sort else None)
     t_post = time.time() - t0
 
-    if dense_rerank and stride == 1 and rerank != "sw" and final_d is not None:
-        save_results(final_ids, final_d,
-                     os.path.join(output_dir, "indices.npy"),
-                     os.path.join(output_dir, "distances.npy"), k)
-    else:
-        # raw search results: k columns dense, k_clusters sparse
-        save_results(neighbors, distances,
-                     os.path.join(output_dir, "indices.npy"),
-                     os.path.join(output_dir, "distances.npy"),
-                     k if stride == 1 else k_clusters)
+    # a streamed run's output is its SAM alone, as in the JAX package
+    if not use_streaming:
+        npys = (os.path.join(output_dir, "indices.npy"),
+                os.path.join(output_dir, "distances.npy"))
+        if dense_rerank and stride == 1 and rerank != "sw" and final_d is not None:
+            save_results(final_ids, final_d, *npys, k)
+        else:
+            # raw search results: k columns dense, k_clusters sparse
+            save_results(neighbors, distances, *npys,
+                         k if stride == 1 else k_clusters)
     return {
         "num_queries": int(query_emb.shape[0]),
         "k": k,

@@ -87,9 +87,9 @@ def test_cli_refuses_unported_features(data_dir, tmp_path):
     fna = str(data_dir / "ecoli_150.fna")
     for argv in (
         ["build-index", fna, str(tmp_path / "a"), "150", "--index-type", "HNSWPQ"],
-        ["build-index", fna, str(tmp_path / "a"), "150", "--resume"],
+        ["build-index", fna, str(tmp_path / "a"), "150", "--distributed"],
         ["build-index", fna, str(tmp_path / "a"), "150", "--shards", "2"],
-        ["pipeline", str(tmp_path / "a"), fna, fna, "--mapq"],
+        ["pipeline", str(tmp_path / "a"), fna, fna, "--paired2", "x"],
         ["pipeline", str(tmp_path / "a"), fna, fna, "--long-reads"],
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -98,9 +98,11 @@ def test_cli_refuses_unported_features(data_dir, tmp_path):
 
 def test_port_cli_never_imports_jax(data_dir, tmp_path):
     """build-index -> pipeline through the port's CLI in a fresh process
-    (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8, and finetune ->
-    build-index --weights -> pipeline), then assert that neither jax nor any
-    module of the JAX package was imported."""
+    (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8, finetune ->
+    build-index --weights -> pipeline, the SAM options, inference, info)
+    with serve, bench, io.bam, io.npy_stream and ops.pack imported, then
+    assert that neither jax nor any module of the JAX package was
+    imported."""
     code = (
         "import sys\n"
         "from deepreadmapper_tpu_torch import cli\n"
@@ -124,6 +126,13 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
         " d + '/tuned.npz', *dev]) == 0\n"
         "assert cli.main(['pipeline', d + '/tidx', fq, fna, '128', '8', '5',"
         " d + '/tuned_out', '--no-sam', *dev]) == 0\n"
+        "import deepreadmapper_tpu_torch.bench, deepreadmapper_tpu_torch.io.bam\n"
+        "import deepreadmapper_tpu_torch.io.npy_stream, deepreadmapper_tpu_torch.ops.pack\n"
+        "import deepreadmapper_tpu_torch.pipeline.serve\n"
+        "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '8', '5', d + '/sam_out',"
+        " '--mapq', '--cigar', '--qual', '--sort', '--bam', '--mark-duplicates', *dev]) == 0\n"
+        "assert cli.main(['inference', fq, '150', d + '/emb.npy', *dev]) == 0\n"
+        "assert cli.main(['info', d + '/idx']) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = sorted(m for m in sys.modules if m == 'deepreadmapper_tpu'"
         " or m.startswith('deepreadmapper_tpu.'))\n"
@@ -140,9 +149,12 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     assert os.path.exists(tmp_path / "ivf_out" / "indices.npy")
     assert os.path.exists(tmp_path / "tidx" / "encoder.npz")
     assert os.path.exists(tmp_path / "tuned_out" / "indices.npy")
+    assert os.path.exists(tmp_path / "sam_out" / "results.bam")
+    assert os.path.exists(tmp_path / "emb.npy")
 
 
-@pytest.mark.parametrize("cmd", ["build-index", "pipeline", "finetune"])
+@pytest.mark.parametrize("cmd", ["build-index", "pipeline", "finetune", "inference",
+                                 "serve"])
 def test_cli_without_a_card_fails_and_writes_nothing(data_dir, tmp_path, cmd):
     """Without --device cpu and with no CUDA device visible, each command
     exits with status 2 and the device error, and writes no output."""
@@ -152,14 +164,16 @@ def test_cli_without_a_card_fails_and_writes_nothing(data_dir, tmp_path, cmd):
     argv = {"build-index": ["build-index", fna, str(out), "150"],
             "pipeline": ["pipeline", str(tmp_path / "idx"), fq, fna, "128", "128", "5",
                          str(out)],
-            "finetune": ["finetune", fna, "150", "-o", str(out)]}[cmd]
+            "finetune": ["finetune", fna, "150", "-o", str(out)],
+            "inference": ["inference", fq, "150", str(out)],
+            "serve": ["serve", str(tmp_path / "idx"), fna]}[cmd]
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-m", "deepreadmapper_tpu_torch", *argv],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2
     assert "no CUDA device is visible" in proc.stderr
     assert "--device cpu" in proc.stderr
-    assert not out.exists()
+    assert not out.exists() and proc.stdout == ""
 
 
 def _sam_ids(res, n_reads, k):
