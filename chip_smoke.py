@@ -44,6 +44,18 @@ Phases (any failure raises and the exit code is not 0):
               inference == the pipeline's embeddings; the bf16 Vectorizer's
               top-1; serve in process == the one-shot pipeline; the bench
               twin's line and ids; --profile names gru_fwd and int8_winmin
+ 11. genome_pe a seeded 5 Mbp genome with 5% planted 2 kb repeats, 4,096 FR
+              pairs (insert 500 +- 50, 2% substitutions), INT8FLAT, k 16:
+              each end single-end, then run_pipeline_paired --max-isize
+              700 --mapq (proper-pair rate, paired top-1 per end against
+              single-end, MAPQ >= 30 precision, the split), --rerank sw
+              through the CLI (launches sw_score), a serve fastq2 request
+              (== the one-shot run); genome_lr on phase 5's index: 256
+              reads each of 1 and 5 kb at 1% and 5% error (40% indels) and
+              a chimera, --long-reads --cigar --mapq (top-1, MAPQ >= 30
+              precision, FLAG 2048, SEQ + CIGAR + MD rebuild the genome,
+              the host_pack / embed / search / chain split, the scan's
+              workspace above the resident index)
 Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
 results line), holds the four IVF chunk scans against their plain versions
 on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
@@ -99,6 +111,16 @@ INT32_OPS_S = 132 * 64 * 1.98e9
 SW_OPS_PER_CELL = 7                 # match test, diag+s, max 0, max(up,left), -1, max, best
 SAM_K = 10                          # phase 10's k: 81,920 SAM lines for 8192 reads
 BENCH_REPS = 100                    # the bench twin's tiling: bench.py's 15,000 reads
+# phase 11: results/eval_paired_r3_5mbp.json's shape (scripts/eval_paired.py)
+PE_GENOME_BP, PE_PAIRS, PE_K = 5_000_000, 4096, 16
+PE_ISIZE, PE_ISIZE_SD, PE_ERR = 500, 50, 0.02
+PE_MAX_ISIZE = PE_ISIZE + 4 * PE_ISIZE_SD
+PE_REPEAT_FRAC, PE_REPEAT_BLOCK = 0.05, 2_000
+# paired top-1 (R1, R2) the JAX package reached at that shape on a TPU
+# (results/eval_paired_r3_5mbp.json): the gate is this less 0.01
+JAX_PE_TOP1 = (0.9451, 0.9468)
+# phase 11's long reads: scripts/eval_longread.py's grid at its default size
+LR_LENS, LR_ERRS, LR_READS = (1_000, 5_000), (0.01, 0.05), 256
 # bwa's tab form with literal "\t" escapes; io.sam.parse_read_group (both
 # packages) takes the fields without bwa's leading "@RG"
 SAM_RG = "ID:smoke\\tSM:s1"
@@ -1822,7 +1844,7 @@ def phase_genome_sam(genome: dict):
     if top1["bfloat16"][0] < top1["float32"][0] - 0.01:
         raise AssertionError(f"bf16 top-1 {top1['bfloat16'][0]}")
 
-    # 6. serve in process: two requests, a paired one, quit
+    # 6. serve in process: two requests, quit (phase 11 serves a paired one)
     del engine
     o1, o2 = os.path.join(work, "srv1"), os.path.join(work, "srv2")
     reqs = [{"id": "plain", "fastq": fq, "output_dir": o1, "ef": 128, "k": SAM_K,
@@ -1830,15 +1852,13 @@ def phase_genome_sam(genome: dict):
             {"id": "tags", "fastq": fq, "output_dir": o2, "ef": 128, "k": SAM_K,
              "k_clusters": 5, "mapq": True, "cigar": True, "qual": True,
              "read_group": SAM_RG},
-            {"id": "pair", "fastq": fq, "fastq2": fq, "output_dir": os.path.join(work, "p")},
             {"cmd": "quit"}]
     sout = io.StringIO()
     with contextlib.redirect_stdout(io.StringIO()) as noise:
         served = serve(idx, ref, in_stream=io.StringIO(
             "".join(json.dumps(r) + "\n" for r in reqs)), out_stream=sout)
     replies = [json.loads(ln) for ln in sout.getvalue().splitlines()]
-    if noise.getvalue() or served != 2 or [r.get("ok") for r in replies] != [True, True, True,
-                                                                              False, True]:
+    if noise.getvalue() or served != 2 or [r.get("ok") for r in replies] != [True] * 4:
         raise AssertionError(f"serve: {served} served, replies {replies}, stdout "
                              f"{noise.getvalue()[:200]!r}")
     o1_one = os.path.join(work, "one_shot")
@@ -1853,8 +1873,7 @@ def phase_genome_sam(genome: dict):
     log(f"[genome_sam] serve: t_load {replies[0]['t_load']:.3f} s; warm request (tags) embed + "
         f"search {warm['t_embed'] + warm['t_search']:.3f} s, post {warm['t_post']:.3f} s; the "
         f"one-shot run {one['t_embed'] + one['t_search']:.3f} s (index load "
-        f"{one['t_index']:.3f} s); both SAMs equal the one-shot ones; the paired request: "
-        f"{replies[3]['error'][:60]}...")
+        f"{one['t_index']:.3f} s); both SAMs equal the one-shot ones")
 
     # 7. the bench twin: its line, and its ids against an unpacked top-k
     buf = io.StringIO()
@@ -1901,6 +1920,375 @@ def phase_genome_sam(genome: dict):
         raise AssertionError(f"the trace names no {[k for k, v in found.items() if not v]}")
 
 
+# -- phase 11: paired ends and long reads -------------------------------------
+
+_COMP = str.maketrans("ACGT", "TGCA")
+
+
+def _make_genome(n_bp: int, seed: int) -> str:
+    """scripts/demo_genome_scale.make_genome's genome (the same draws),
+    built from bytes."""
+    rng = np.random.default_rng(seed)
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n_bp)].tobytes().decode()
+
+
+def _simulate_pairs(genome: str, n_pairs: int, read_len: int, isize_mean: int,
+                    isize_sd: int, err: float, seed: int):
+    """scripts/eval_paired.py's simulate_pairs, copied: FR pairs, R1 forward
+    at the fragment start, R2 the reverse complement of its end, inserts
+    from N(mean, sd) clipped to [2 read_len, mean + 4 sd], substitutions at
+    err.  Returns (r1, r2, truth): truth holds (R1 start, R2 start)."""
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+    max_start = len(genome) - (isize_mean + 4 * isize_sd) - 1
+    starts = rng.integers(0, max_start, n_pairs)
+    isizes = np.clip(rng.normal(isize_mean, isize_sd, n_pairs).astype(int),
+                     2 * read_len, isize_mean + 4 * isize_sd)
+
+    def mutate(s):
+        out = list(s)
+        for i in np.flatnonzero(rng.random(len(out)) < err):
+            out[i] = rng.choice(bases[bases != out[i]])
+        return "".join(out)
+
+    r1, r2, truth = [], [], []
+    for i, (s, isz) in enumerate(zip(starts, isizes)):
+        a = mutate(genome[s: s + read_len])
+        b = mutate(genome[s + isz - read_len: s + isz]).translate(_COMP)[::-1]
+        r1.append((f"p{i}", a))
+        r2.append((f"p{i}", b))
+        truth.append((int(s), int(s + isz - read_len)))
+    return r1, r2, truth
+
+
+def _lr_mutate(seq: str, sub: float, indel: float, rng) -> str:
+    """scripts/eval_longread.py's mutate, copied: per base a deletion (indel
+    / 2), an insertion before it (indel / 2) or a substitution (sub)."""
+    out = []
+    bases = "ACGT"
+    for ch in seq:
+        r = rng.random()
+        if r < indel / 2:
+            continue
+        if r < indel:
+            out.append(rng.choice(list(bases)))
+            out.append(ch)
+            continue
+        if r < indel + sub:
+            out.append(rng.choice([b for b in bases if b != ch]))
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+def _write_fastq(path: str, reads) -> None:
+    with open(path, "w") as f:
+        for name, seq in reads:
+            f.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+
+
+def _write_fasta(path: str, genome: str) -> None:
+    with open(path, "w") as f:
+        f.write("> sim\n")
+        for i in range(0, len(genome), 80):
+            f.write(genome[i: i + 80] + "\n")
+
+
+def _end_top1(ids: np.ndarray, truth: np.ndarray, strand: int) -> float:
+    """Share of reads whose first candidate is within 5 bp of the truth, on
+    the end's strand (R1 forward, R2 reverse)."""
+    top = np.asarray(ids)[:, 0].astype(np.int64)
+    return float(np.mean((np.abs((top >> 1) - truth) <= 5) & ((top & 1) == strand)))
+
+
+def _paired_mapq30(sam: str, t1: np.ndarray, t2: np.ndarray) -> tuple[int, int]:
+    """scripts/eval_paired.py's MAPQ calibration: among primaries with MAPQ
+    >= 30, those within 110 bp of their end's start; returns (right, all)."""
+    ok = tot = 0
+    with open(sam) as f:
+        for ln in f:
+            if ln.startswith("@"):
+                continue
+            fl = ln.split("\t", 5)
+            flag = int(fl[1])
+            if flag & 0x900 or int(fl[4]) < 30:
+                continue
+            i = int(fl[0][1:])
+            tot += 1
+            ok += abs(int(fl[3]) - 1 - (t2[i] if flag & 0x80 else t1[i])) <= 110
+    return ok, tot
+
+
+def phase_genome_pe():
+    """Paired ends at the shape of the JAX package's paired record
+    (results/eval_paired_r3_5mbp.json): a seeded 5 Mbp genome with 5% of it
+    planted as 2 kb repeats (scripts/eval_paired.py's recipe), 4,096 FR
+    pairs of 150 bp (insert 500 +- 50, 2% substitutions), INT8FLAT, k 16:
+    each end single-end, then run_pipeline_paired --max-isize 700 --mapq,
+    then the same pairs with --rerank sw through the CLI, then a serve
+    fastq2 request.  Every gate raises."""
+    import contextlib
+    import io
+
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, kernels, native
+    from deepreadmapper_tpu_torch.index.registry import load_index
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.pipeline.search import run_pipeline, run_pipeline_paired
+    from deepreadmapper_tpu_torch.pipeline.serve import serve
+
+    if not native.available():
+        raise AssertionError("the native library is not loaded: mate rescue would find "
+                             "nothing and the banded CIGARs would be skipped")
+    work = os.path.join(WORK, "genome_pe")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    genome = _make_genome(PE_GENOME_BP, 0)
+    rng = np.random.default_rng(7)  # eval_paired.py plants with seed + 7
+    g = np.frombuffer(genome.encode(), np.uint8).copy()
+    for _ in range(int(PE_GENOME_BP * PE_REPEAT_FRAC / PE_REPEAT_BLOCK)):
+        src = rng.integers(0, PE_GENOME_BP // 2 - PE_REPEAT_BLOCK)
+        dst = rng.integers(PE_GENOME_BP // 2, PE_GENOME_BP - PE_REPEAT_BLOCK)
+        g[dst: dst + PE_REPEAT_BLOCK] = g[src: src + PE_REPEAT_BLOCK]
+    genome = g.tobytes().decode()
+    r1, r2, truth = _simulate_pairs(genome, PE_PAIRS, READ_LEN, PE_ISIZE, PE_ISIZE_SD,
+                                    PE_ERR, seed=1)
+    t1 = np.array([t[0] for t in truth], np.int64)
+    t2 = np.array([t[1] for t in truth], np.int64)
+    ref, f1, f2 = (os.path.join(work, n) for n in ("ref.fna", "r1.fastq", "r2.fastq"))
+    _write_fasta(ref, genome)
+    _write_fastq(f1, r1)
+    _write_fastq(f2, r2)
+    t_sim = time.perf_counter() - t0
+
+    idx = os.path.join(work, "idx")
+    t0 = time.perf_counter()
+    if cli.main(["build-index", ref, idx, str(READ_LEN)]) != 0:
+        raise AssertionError("genome_pe build-index failed")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    log(f"[genome_pe] {PE_GENOME_BP} bp, {int(PE_GENOME_BP * PE_REPEAT_FRAC / PE_REPEAT_BLOCK)} "
+        f"planted {PE_REPEAT_BLOCK} bp repeats, {PE_PAIRS} pairs simulated in {t_sim:.1f} s; "
+        f"INT8FLAT build {t_build:.1f} s")
+
+    # single-end per end, against one resident engine
+    vec = Vectorizer()
+    preloaded = load_index(idx)
+    se = {}
+    for end, fq, tcol, strand in (("R1", f1, t1, 0), ("R2", f2, t2, 1)):
+        res = run_pipeline(idx, fq, ref, k=PE_K, output_dir=os.path.join(work, "se_" + end),
+                           write_sam=False, vectorizer=vec, preloaded=preloaded)
+        se[end] = _end_top1(res["final_ids"], tcol, strand)
+    del preloaded
+    torch.cuda.empty_cache()
+
+    # paired, from the index load on
+    out = os.path.join(work, "pe")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = run_pipeline_paired(idx, f1, f2, ref, k=PE_K, output_dir=out, mapq=True,
+                              max_isize=PE_MAX_ISIZE)
+    torch.cuda.synchronize()
+    t_pair = time.perf_counter() - t0
+    launches = kernels.counts()
+    ids = np.load(os.path.join(out, "indices.npy"))
+    pe = {"R1": _end_top1(ids[:PE_PAIRS], t1, 0), "R2": _end_top1(ids[PE_PAIRS:], t2, 1)}
+    proper = res["n_proper"] / PE_PAIRS
+    ok, tot = _paired_mapq30(os.path.join(out, "results.sam"), t1, t2)
+    prec = ok / max(tot, 1)
+    (e1, s1), (e2, s2) = res["t_ends"]
+    tm = res["t_pair_split"]
+    log(f"[genome_pe] paired (--max-isize {PE_MAX_ISIZE}, --mapq, k {PE_K}): wall "
+        f"{t_pair:.2f} s = index load {res['t_index']:.2f} | R1 embed {e1:.3f} search "
+        f"{s1:.3f} | R2 embed {e2:.3f} search {s2:.3f} | resolve {tm['resolve']:.3f} | rescue "
+        f"{tm['rescue']:.3f} ({res['n_rescued']} pairs rescued) | SAM + npy {tm['sam']:.3f} s; "
+        f"launches {launches}")
+    log(f"[genome_pe] proper-pair rate {proper:.4f} (need >= 0.995); top-1 R1 {pe['R1']:.4f} / "
+        f"R2 {pe['R2']:.4f} paired against {se['R1']:.4f} / {se['R2']:.4f} single-end (need >= "
+        f"single-end and >= {JAX_PE_TOP1[0] - 0.01:.4f} / {JAX_PE_TOP1[1] - 0.01:.4f}); MAPQ >= 30 "
+        f"precision {prec:.4f} on {tot} primaries (need >= 0.995)")
+    bad = []
+    if proper < 0.995:
+        bad.append(f"proper-pair rate {proper}")
+    for j, end in enumerate(("R1", "R2")):
+        if pe[end] < se[end] or pe[end] < JAX_PE_TOP1[j] - 0.01:
+            bad.append(f"paired top-1 {end} {pe[end]}")
+    if prec < 0.995:
+        bad.append(f"MAPQ >= 30 precision {prec}")
+    if launches["gru_fwd"] <= 0 or launches["int8_winmin"] <= 0:
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"genome_pe: {bad}")
+
+    # the SW rerank on the same pairs, through the CLI
+    o = os.path.join(work, "pe_sw")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    if cli.main(["pipeline", idx, f1, ref, "128", str(PE_K), "5", o, "--paired2", f2,
+                 "--rerank", "sw", "--mapq", "--max-isize", str(PE_MAX_ISIZE)]) != 0:
+        raise AssertionError("genome_pe --rerank sw failed")
+    t_sw = time.perf_counter() - t0
+    launches = kernels.counts()
+    ids = np.load(os.path.join(o, "indices.npy"))
+    sw = (_end_top1(ids[:PE_PAIRS], t1, 0), _end_top1(ids[PE_PAIRS:], t2, 1))
+    log(f"[genome_pe] --rerank sw: {t_sw:.2f} s, top-1 {sw[0]:.4f} / {sw[1]:.4f}, launches "
+        f"{launches}")
+    if launches["sw_score"] <= 0:
+        raise AssertionError(f"the paired SW run launched no sw_score: {launches}")
+
+    # serve: a fastq2 request equals the one-shot paired run
+    so = os.path.join(work, "srv")
+    reqs = [{"id": "pe", "fastq": f1, "fastq2": f2, "output_dir": so, "k": PE_K,
+             "mapq": True, "max_isize": PE_MAX_ISIZE}, {"cmd": "quit"}]
+    sout = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()):
+        served = serve(idx, ref, in_stream=io.StringIO(
+            "".join(json.dumps(r) + "\n" for r in reqs)), out_stream=sout)
+    replies = [json.loads(ln) for ln in sout.getvalue().splitlines()]
+    same = all(open(os.path.join(so, n), "rb").read() == open(os.path.join(out, n), "rb").read()
+               for n in ("results.sam", "indices.npy", "distances.npy"))
+    log(f"[genome_pe] serve fastq2 request: ok {replies[1].get('ok')}, embed + search "
+        f"{replies[1].get('t_embed', 0) + replies[1].get('t_search', 0):.3f} s; SAM and npy "
+        f"byte-identical to the one-shot run: {same}")
+    if served != 1 or not replies[1].get("ok") or not same:
+        raise AssertionError(f"serve's paired request: {replies}, identical {same}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_genome_lr(genome: dict):
+    """Long reads on phase 5's 2 Mbp INT8FLAT index and genome
+    (scripts/eval_longread.py's default size): 256 reads each of 1 and 5
+    kb at 1% and 5% error, 40% of it indels, both strands, and one
+    chimera; pipeline --long-reads --cigar --mapq.  Every gate raises."""
+    import re
+
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, kernels, native
+    from deepreadmapper_tpu_torch.index.registry import load_index
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.pipeline.longread import chunk_read
+    from deepreadmapper_tpu_torch.pipeline.search import run_pipeline
+
+    if not native.available():
+        raise AssertionError("the native library is not loaded: no banded CIGARs")
+    work = os.path.join(WORK, "genome_lr")
+    os.makedirs(work, exist_ok=True)
+    gstr = genome["genome"].tobytes().decode()
+    ref, idx = genome["ref"], genome["idx"]
+    n_bp = len(gstr)
+    # the chimera (eval_longread.py's: 800 + 700 bp from the two halves)
+    # through the CLI: the entry point loads the index
+    rng = np.random.default_rng(99)
+    a = int(rng.integers(0, n_bp // 2 - 1000))
+    b = int(rng.integers(n_bp // 2, n_bp - 1000))
+    chim = (_lr_mutate(gstr[a: a + 800], 0.005, 0.005, rng)
+            + _lr_mutate(gstr[b: b + 700], 0.005, 0.005, rng))
+    fq = os.path.join(work, "chim.fastq")
+    _write_fastq(fq, [("chim", chim)])
+    out = os.path.join(work, "chim")
+    if cli.main(["pipeline", idx, fq, ref, "128", "4", "5", out, "--long-reads", "--cigar",
+                 "--mapq"]) != 0:
+        raise AssertionError("genome_lr chimera pipeline failed")
+    lines = [ln.split("\t") for ln in open(os.path.join(out, "results.sam"))
+             if not ln.startswith("@")]
+    supp = [f for f in lines if int(f[1]) & 0x800]
+    log(f"[genome_lr] chimera ({a} + 800 bp, {b} + 700 bp): primary POS "
+        f"{_primary(lines)[3]}, supplementary {[(f[3], f[5]) for f in supp]}")
+    if not supp or abs(int(supp[0][3]) - 1 - b) > 110:
+        raise AssertionError(f"the chimera has no FLAG-2048 line at its second locus: {supp}")
+
+    # the scan's workspace: an 8192-read search of the main path (two
+    # 2^21-row chunks, choose_chunk) above what stays resident (the index,
+    # uploaded by a first search, and the encoder)
+    vec = Vectorizer()
+    preloaded = load_index(idx)
+    engine = preloaded[0]
+    q = vec.vectorize_wrapped_bytes(genome["wrapped"], np.full(N_READS, READ_LEN + 2))
+    engine.search(q[:8], 4)
+    torch.cuda.synchronize()
+    index_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.search(q, 128)
+    torch.cuda.synchronize()
+    ws_main = torch.cuda.max_memory_allocated() - index_bytes
+    log(f"[genome_lr] resident index + encoder {index_bytes / 2**30:.3f} GiB; an {N_READS}-read "
+        f"k-128 search's workspace above it {ws_main / 2**30:.3f} GiB "
+        f"({ws_main / 1e9:.3f} GB)")
+    rows, n_real = [], 0
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for L in LR_LENS:
+        for err in LR_ERRS:
+            rng = np.random.default_rng(L + int(err * 1000))  # eval_longread.py's seeds
+            reads, starts, strands = [], [], []
+            for i in range(LR_READS):
+                s = int(rng.integers(0, n_bp - L))
+                seq = _lr_mutate(gstr[s: s + L], err * 0.6, err * 0.4, rng)
+                st = int(rng.integers(0, 2))
+                reads.append((f"r{i}", seq.translate(_COMP)[::-1] if st else seq))
+                starts.append(s)
+                strands.append(st)
+            fq = os.path.join(work, f"lr_{L}_{err}.fastq")
+            _write_fastq(fq, reads)
+            out = os.path.join(work, f"out_{L}_{err}")
+            t0 = time.perf_counter()
+            res = run_pipeline(idx, fq, ref, k=4, output_dir=out, long_reads=True, cigar=True,
+                               mapq=True, vectorizer=vec, preloaded=preloaded)
+            dt = time.perf_counter() - t0
+            ids = np.load(os.path.join(out, "indices.npy"))
+            tol = max(20, int(L * err))  # eval_longread.py's: indel drift grows with L * err
+            ok = (np.abs(ids[:, 0] // 2 - np.array(starts)) <= tol) & (
+                ids[:, 0] % 2 == np.array(strands))
+            mq = np.zeros(LR_READS, np.int64)
+            for ln in open(os.path.join(out, "results.sam")):
+                if ln.startswith("@"):
+                    continue
+                f = ln.rstrip("\n").split("\t")
+                if int(f[1]) & 0x900:
+                    continue
+                i = int(f[0][1:])
+                mq[i] = int(f[4])
+                tags = {t.split(":", 2)[0]: t.split(":", 2)[2] for t in f[11:]}
+                if "MD" in tags:
+                    n_real += 1
+                    pos, recon = int(f[3]), _reconstruct_ref(f[9], f[5], tags["MD"])
+                    if recon != gstr[pos - 1: pos - 1 + len(recon)]:
+                        raise AssertionError(f"{L} bp, {err}: r{i}'s SEQ + CIGAR + MD do not "
+                                             f"rebuild the genome at {pos}")
+                    ops = re.findall(r"(\d+)([MIDS])", f[5])
+                    if sum(int(n) for n, op in ops if op in "MIS") != len(f[9]):
+                        raise AssertionError(f"r{i}: CIGAR {f[5]} does not cover its SEQ")
+            hi = mq >= 30
+            split = res["t_lr_split"]
+            n_chunks = sum(len(chunk_read(len(seq), READ_LEN)) for _, seq in reads)
+            row = {"read_len": L, "err": err, "top1": float(ok.mean()),
+                   "mapq30_precision": float(ok[hi].mean()) if hi.any() else 1.0,
+                   "mapq30_frac": float(hi.mean()), "reads_per_s": LR_READS / dt,
+                   "chunks": n_chunks, "split_s": {k: round(v, 4) for k, v in split.items()},
+                   "t_post_s": round(res["t_post"], 4)}
+            rows.append(row)
+            log(f"[genome_lr] {json.dumps(row)}")
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[genome_lr] launches over the four rows {launches}; {n_real} real-CIGAR primaries "
+        f"rebuild the genome; peak device memory {peak / 2**30:.3f} GiB, the workspace above "
+        f"the resident index + encoder {(peak - index_bytes) / 2**30:.3f} GiB "
+        f"({(peak - index_bytes) / 1e9:.3f} GB)")
+    bad = [f"{r['read_len']} bp at {r['err']}: top-1 {r['top1']:.4f}, MAPQ >= 30 precision "
+           f"{r['mapq30_precision']:.4f}" for r in rows
+           if r["top1"] < 0.99 or r["mapq30_precision"] < 0.99]
+    if launches["gru_fwd"] <= 0 or launches["int8_winmin"] <= 0:
+        bad.append(f"launches {launches}")
+    if n_real < 0.99 * len(rows) * LR_READS:
+        bad.append(f"only {n_real} real CIGARs")
+    if bad:
+        raise AssertionError(f"genome_lr: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = phase_device()
@@ -1933,6 +2321,13 @@ def main() -> int:
     phase_genome_sam(genome)
     log(f"[time] phase 10 (genome_sam) in {time.perf_counter() - t10:.1f} s; phases 1-10 in "
         f"{time.perf_counter() - t0:.1f} s")
+    t11 = time.perf_counter()
+    phase_genome_pe()
+    t_pe = time.perf_counter() - t11
+    phase_genome_lr(genome)
+    log(f"[time] phase 11 (genome_pe {t_pe:.1f} s, genome_lr "
+        f"{time.perf_counter() - t11 - t_pe:.1f} s) in {time.perf_counter() - t11:.1f} s; "
+        f"phases 1-11 in {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

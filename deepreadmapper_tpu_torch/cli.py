@@ -3,6 +3,7 @@ positional arguments of ``deepreadmapper_tpu/cli.py``:
 
   pipeline     <index_prefix> <query> <ref> [ef k k_clusters output_dir
                use_dynamic use_streaming] [--cigar --mapq ... --profile DIR]
+               [--paired2 R2 | --paired-interleaved] [--long-reads]
   build-index  <ref> <index_prefix> <ref_len> [stride M_pq nbits M_hnsw EFC]
                [--weights tuned.npz --resume]
   serve        <index_prefix> <ref> (JSONL requests on stdin)
@@ -29,16 +30,18 @@ import sys
 from deepreadmapper_tpu_torch import not_ported, resolve_device
 
 # Flags of the JAX CLI whose features are not ported yet (ROADMAP.md).
-_PIPELINE_UNPORTED = (
-    "--long-reads", "--distributed", "--paired-interleaved", "--no-rescue",
-)
-_PIPELINE_UNPORTED_VALUED = (
-    "--paired2", "--lr-max-chunks", "--max-isize", "--min-isize",
-)
+_PIPELINE_UNPORTED = ("--distributed",)
 _BUILD_UNPORTED = ("--distributed",)
 _BUILD_UNPORTED_VALUED = ("--shards", "--level-mode", "--build-mode")
-# plan's --hbm-gb default without a visible card: the H100's 80 GB
+# plan's card memory without a visible card: the H100's 80 GB
 _DEFAULT_HBM_GB = 80.0
+# Device memory an INT8FLAT search needs beside its resident index: an
+# 8192-read search at the main path's 2^21-row chunk (choose_chunk) took
+# 9.136 GB above the resident index and encoder, per chunk and so whatever
+# the index's size (chip_smoke.py phase 11, genome_lr; NVIDIA H100 80GB
+# HBM3, 700.00 W).  Rounded up; plan holds it back from the card's memory
+# unless --hbm-gb is given.
+_SCAN_WORKSPACE_GB = 9.2
 
 
 def _add_device(p):
@@ -89,11 +92,33 @@ def _add_pipeline(sub):
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the query "
                         "embed and the search into DIR")
+    p.add_argument("--long-reads", action="store_true",
+                   help="map reads longer than the index window by chunk -> "
+                        "search -> chain voting; chained read-start "
+                        "placements, support MAPQ, FLAG-2048 lines for split "
+                        "reads")
+    p.add_argument("--lr-max-chunks", type=int, default=128,
+                   help="--long-reads: at most this many chunks (votes) a "
+                        "read; the chunk stride widens past half a window "
+                        "beyond ~(N/2)*ref_len bases")
+    p.add_argument("--paired2", default=None, metavar="R2_FASTQ",
+                   help="paired-end mode: the mate (R2) FASTQ; FR proper-pair "
+                        "resolution, paired FLAG/RNEXT/PNEXT/TLEN, pair-margin "
+                        "MAPQ")
+    p.add_argument("--max-isize", type=int, default=1000,
+                   help="paired-end: maximum outer insert size")
+    p.add_argument("--min-isize", type=int, default=0,
+                   help="paired-end: minimum outer insert size")
+    p.add_argument("--paired-interleaved", action="store_true",
+                   help="the query FASTQ holds interleaved R1/R2 records; "
+                        "split (beside the outputs) and map as pairs")
+    p.add_argument("--no-rescue", action="store_true",
+                   help="paired-end: no SW mate rescue (the scan of the "
+                        "expected mate interval next to an anchored end "
+                        "when no proper pair exists)")
     _add_device(p)
     for flag in _PIPELINE_UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
-    for flag in _PIPELINE_UNPORTED_VALUED:
-        p.add_argument(flag, default=None, help="not ported yet")
 
 
 def _add_build(sub):
@@ -197,8 +222,9 @@ def _add_plan(sub):
                    help="fix the stride (default: recommend one)")
     p.add_argument("--hbm-gb", type=float, default=None,
                    help="usable device memory per card for index residency "
-                        "(default: the visible card's total memory; "
-                        f"{_DEFAULT_HBM_GB:g} without a card)")
+                        "(default: the visible card's memory less the "
+                        f"search's {_SCAN_WORKSPACE_GB:g} GB scan workspace; "
+                        f"{_DEFAULT_HBM_GB:g} GB less it without a card)")
 
 
 def _add_inference(sub):
@@ -229,6 +255,25 @@ def _refuse_unported(args, flags) -> None:
     for flag in flags:
         if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None, False):
             raise not_ported(flag)
+
+
+def _split_interleaved(path: str, output_dir: str):
+    """Split an interleaved FASTQ (R1, R2, R1, ...) into
+    <output_dir>/_interleaved_R1.fastq and _R2.fastq, kept beside the
+    outputs; returns the two paths, or None for an odd record count."""
+    from deepreadmapper_tpu_torch.io.fileio import read_bytes
+
+    data = read_bytes(path).split(b"\n")
+    recs = [data[i: i + 4] for i in range(0, len(data) - 3, 4)]
+    if len(recs) % 2:
+        return None
+    os.makedirs(output_dir, exist_ok=True)
+    p1 = os.path.join(output_dir, "_interleaved_R1.fastq")
+    p2 = os.path.join(output_dir, "_interleaved_R2.fastq")
+    with open(p1, "wb") as f1, open(p2, "wb") as f2:
+        for j, rec in enumerate(recs):
+            (f1 if j % 2 == 0 else f2).write(b"\n".join(rec) + b"\n")
+    return p1, p2
 
 
 def _info(index_prefix: str) -> int:
@@ -262,17 +307,18 @@ def _info(index_prefix: str) -> int:
 
 
 def _card_gb() -> float:
-    """Total memory of the visible card in GB (1e9 bytes), else the H100's."""
+    """Memory of the visible card (else the H100's) in GB (1e9 bytes), less
+    the search's scan workspace: what an index may hold."""
     import torch
 
-    if torch.cuda.is_available():
-        return torch.cuda.get_device_properties(0).total_memory / 1e9
-    return _DEFAULT_HBM_GB
+    total = (torch.cuda.get_device_properties(0).total_memory / 1e9
+             if torch.cuda.is_available() else _DEFAULT_HBM_GB)
+    return total - _SCAN_WORKSPACE_GB
 
 
 def _plan(args) -> int:
     """The JAX CLI's ``plan``, the same sizing rules and output, against the
-    card's memory by default."""
+    card's memory less the scan workspace by default."""
     if os.path.exists(args.genome):
         from deepreadmapper_tpu_torch.utils.memory import estimate_window_count
 
@@ -395,8 +441,11 @@ def main(argv=None) -> int:
         return 2
 
     if args.cmd == "pipeline":
-        _refuse_unported(args, _PIPELINE_UNPORTED + _PIPELINE_UNPORTED_VALUED)
-        from deepreadmapper_tpu_torch.pipeline.search import run_pipeline
+        _refuse_unported(args, _PIPELINE_UNPORTED)
+        from deepreadmapper_tpu_torch.pipeline.search import (
+            run_pipeline,
+            run_pipeline_paired,
+        )
 
         if args.read_group:
             # fail fast: a malformed read group would otherwise raise only
@@ -404,30 +453,38 @@ def main(argv=None) -> int:
             from deepreadmapper_tpu_torch.io.sam import parse_read_group
 
             parse_read_group(args.read_group)
+        if args.paired_interleaved and not args.paired2:
+            split = _split_interleaved(args.query_file, args.output_dir)
+            if split is None:
+                print("[MAIN] ERROR: interleaved FASTQ holds an odd number of "
+                      "records")
+                return 1
+            args.query_file, args.paired2 = split
+        vectorizer = _vectorizer(args.weights, device) if args.weights else None
+        common = dict(
+            ef=args.ef, k=args.k, k_clusters=args.k_clusters,
+            output_dir=args.output_dir, use_streaming=bool(args.use_streaming),
+            rerank=args.rerank, dense_rerank=args.dense_rerank,
+            write_sam=not args.no_sam, cigar=args.cigar, mapq=args.mapq,
+            mapq_calibrated=args.mapq_calibrated, long_reads=args.long_reads,
+            qual=args.qual, sort=args.sort, bam=args.bam,
+            mark_dups=args.mark_duplicates, read_group=args.read_group,
+            vectorizer=vectorizer, device=device,
+        )
+        if args.paired2:
+            res = run_pipeline_paired(
+                args.index_prefix, args.query_file, args.paired2, args.ref_file,
+                max_isize=args.max_isize, min_isize=args.min_isize,
+                rescue=not args.no_rescue, **common,
+            )
+            print(f"[MAIN] {res['num_queries']} reads | "
+                  f"{res['n_proper']}/{res['num_pairs']} proper pairs | "
+                  f"embed {res['t_embed']:.2f}s | search {res['t_search']:.2f}s")
+            return 0
         res = run_pipeline(
-            args.index_prefix,
-            args.query_file,
-            args.ref_file,
-            ef=args.ef,
-            k=args.k,
-            k_clusters=args.k_clusters,
-            output_dir=args.output_dir,
-            use_dynamic=bool(args.use_dynamic),
-            use_streaming=bool(args.use_streaming),
-            rerank=args.rerank,
-            dense_rerank=args.dense_rerank,
-            write_sam=not args.no_sam,
-            cigar=args.cigar,
-            mapq=args.mapq,
-            mapq_calibrated=args.mapq_calibrated,
-            qual=args.qual,
-            sort=args.sort,
-            bam=args.bam,
-            mark_dups=args.mark_duplicates,
-            read_group=args.read_group,
-            profile_dir=args.profile,
-            vectorizer=_vectorizer(args.weights, device) if args.weights else None,
-            device=device,
+            args.index_prefix, args.query_file, args.ref_file,
+            use_dynamic=bool(args.use_dynamic), lr_max_chunks=args.lr_max_chunks,
+            profile_dir=args.profile, **common,
         )
         print(
             f"[MAIN] {res['num_queries']} queries | embed {res['t_embed']:.2f}s "

@@ -1,4 +1,5 @@
-"""End-to-end search pipeline (L2 or Smith-Waterman rerank).
+"""End-to-end search pipeline (L2 or Smith-Waterman rerank; long reads;
+paired ends).
 
 Counterpart of ``deepreadmapper_tpu/pipeline/search.py``: index load ->
 query load/embed -> search -> post-process -> outputs.  indices.npy /
@@ -22,27 +23,40 @@ from deepreadmapper_tpu_torch.config import SearchConfig
 from deepreadmapper_tpu_torch.io import fasta as fasta_io
 from deepreadmapper_tpu_torch.io import sam as sam_io
 from deepreadmapper_tpu_torch.io.bam import sam_to_bam
-from deepreadmapper_tpu_torch.io.fastq import parse_fastq_bytes, parse_fastq_quals
+from deepreadmapper_tpu_torch.io.fastq import (
+    parse_fastq,
+    parse_fastq_bytes,
+    parse_fastq_quals,
+)
 from deepreadmapper_tpu_torch.io.fileio import true_ext
 from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
 from deepreadmapper_tpu_torch.io.results import load_embeddings_npy, save_results
-from deepreadmapper_tpu_torch import not_ported, resolve_device
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.registry import load_index
 from deepreadmapper_tpu_torch.models.encoder import Vectorizer, load_params
+from deepreadmapper_tpu_torch.pipeline import longread as lr_mod
 from deepreadmapper_tpu_torch.pipeline import postprocess as pp
+from deepreadmapper_tpu_torch.pipeline.paired import PAD_ID, rescue_mates, resolve_pairs
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 from deepreadmapper_tpu_torch.utils.progress import Progress
 
 _CIGAR_RUN = re.compile(r"(\d+)([MID])")
 
 
-def _load_queries(path: str, vectorizer: Vectorizer):
-    """Returns (embeddings [Q,128] fp32, wrapped query seqs or None, ids)."""
+def _load_queries(path: str, vectorizer: Vectorizer, embed: bool = True):
+    """Returns (embeddings [Q,128] fp32, wrapped query seqs or None, ids).
+
+    embed=False skips the encoder pass and returns no embeddings: long-read
+    requests embed chunks, not whole reads (a whole-read embedding covers
+    only the first ~121 bases)."""
     ext = true_ext(path)
     if ext == ".npy":
         return load_embeddings_npy(path), None, []
     if ext in FASTQ_EXTS:
+        if not embed:
+            seqs, ids = parse_fastq(path)
+            return None, seqs, ids
         mat, lengths, ids = parse_fastq_bytes(path)
         # 48-byte wire upload + device tokenizer
         emb = vectorizer.vectorize_wrapped_bytes(mat, lengths)
@@ -54,6 +68,8 @@ def _load_queries(path: str, vectorizer: Vectorizer):
         else:
             records = fasta_io.parse_fasta_records(path)
             seqs = [r.tobytes().decode() for r in records]
+        if not embed:
+            return None, seqs, []
         return vectorizer.vectorize(seqs), seqs, []
     raise ValueError(f"Unsupported query input: {path}")
 
@@ -233,6 +249,80 @@ def _profiler(profile_dir: str | None, device):
                    on_trace_ready=lambda prof: prof.export_chrome_trace(path))
 
 
+def _finish_sam(sam_file, output_dir, sort, mark_dups, bam):
+    """The SAM's last steps, in this order: coordinate sort, duplicate
+    marking, results.bam (with a .bai when sorted)."""
+    if sort:
+        sam_io.sort_sam_file(sam_file)
+    if mark_dups:
+        nd = sam_io.mark_duplicates(sam_file)
+        if nd:
+            print(f"[MAIN] marked {nd} duplicate lines (FLAG 0x400)")
+    if bam:
+        bam_file = os.path.join(output_dir, "results.bam")
+        # a BAI is valid only over coordinate-sorted records; drop a stale
+        # index from an earlier sorted run into the same dir
+        if not sort and os.path.exists(bam_file + ".bai"):
+            os.remove(bam_file + ".bai")
+        sam_to_bam(sam_file, bam_file, bai_path=bam_file + ".bai" if sort else None)
+
+
+def _map_long(query_seqs, query_ids, vectorizer, engine, genome, ref_len, k, ef,
+              stride, max_chunks, multi, dense_off, sparse_off, base_off, sam_file,
+              cigar, sam_kw):
+    """run_pipeline's long-read branch: chunk -> search -> chain
+    (pipeline/longread.py) in one global base space, then the SAM (when
+    sam_file is set) with support MAPQ, FLAG-2048 supplementary lines and,
+    with cigar, banded-alignment CIGARs.  Returns (ids, dists, timings).
+    Counterpart of the long_reads branch of the JAX run_pipeline."""
+    clean = [sam_io._clean_query(q) for q in query_seqs]
+    if multi:
+        # sparse window index -> concatenated base stream; base start ->
+        # record-cumulative dense window id, clamped into its record
+        def ids_to_base(w):
+            r, loc = fasta_io.record_of(w, sparse_off)
+            return base_off[r] + loc * stride
+
+        def base_to_dense(s, rev):
+            r = np.clip(np.searchsorted(base_off, s, side="right") - 1,
+                        0, len(base_off) - 2)
+            loc = np.clip(s - base_off[r], 0, dense_off[r + 1] - dense_off[r] - 1)
+            return 2 * (dense_off[r] + loc) + rev
+    else:
+        n_dense = max(1, int(genome.size) - ref_len + 1)
+
+        def ids_to_base(w):
+            return w * stride
+
+        def base_to_dense(s, rev):
+            return 2 * np.minimum(s, n_dense - 1) + rev
+
+    timings: dict = {}
+    ids, dists, mapq, supp = lr_mod.map_long_reads(
+        clean, vectorizer, engine, ref_len, k, ef, stride=stride,
+        ids_to_base=ids_to_base, base_to_dense=base_to_dense, timings=timings,
+        max_chunks=max_chunks,
+    )
+    if supp:
+        print(f"[MAIN] split-read: {len(supp)} reads carry supplementary "
+              "(FLAG 2048) segments")
+    if sam_file is not None:
+        pc = po = pt = None
+        if cigar:
+            # band = one window: the chain places the read to within the
+            # vote tolerance, so the alignment's diagonal lies in the band
+            pc, po, pt = lr_mod.banded_primary_cigars(
+                clean, ids[:, 0], genome, band=ref_len,
+                dense_off=dense_off if multi else None,
+                base_off=base_off if multi else None,
+            )
+        sam_io.write_sam(query_seqs, query_ids, ids.ravel(), "ref", ref_len, k,
+                         sam_file, mapq=mapq, supplementary=supp,
+                         primary_cigars=pc, primary_pos_off=po, primary_tags=pt,
+                         **sam_kw)
+    return ids, dists, timings
+
+
 def run_pipeline(
     index_prefix: str,
     query_file: str,
@@ -250,6 +340,7 @@ def run_pipeline(
     mapq: bool = False,
     mapq_calibrated: bool = False,
     long_reads: bool = False,
+    lr_max_chunks: int = 128,
     qual: bool = False,
     sort: bool = False,
     bam: bool = False,
@@ -281,11 +372,17 @@ def run_pipeline(
     per search_cfg.query_batch_size reads, and saves no npy.  profile_dir
     writes a torch.profiler Chrome trace of the embed and the search.
     preloaded=(engine, config) skips the index load (the serve daemon).
-    device defaults to the CUDA device (raises without one)."""
+    device defaults to the CUDA device (raises without one).
+
+    long_reads=True maps reads longer than one window by chunk -> search ->
+    chain (pipeline/longread.py, at most lr_max_chunks chunks a read): the
+    SAM holds chained read-start placements with support MAPQ and FLAG-2048
+    supplementary lines for split reads, cigar=True banded-aligns the
+    primaries, and indices.npy / distances.npy hold the chained ids and
+    1 - chunk-support fraction.  The returned t_lr_split splits its time
+    into host_pack / embed / search / chain."""
     if rerank not in ("l2", "sw"):
         raise ValueError(f"unknown rerank {rerank!r} (l2 | sw)")
-    if long_reads:
-        raise not_ported("--long-reads")
     device = resolve_device(device)
     scfg = search_cfg or SearchConfig()
     ef = ef if ef is not None else scfg.ef
@@ -304,11 +401,15 @@ def run_pipeline(
     vectorizer = vectorizer_for_index(index_prefix, config, vectorizer, device)
     with _profiler(profile_dir, device):
         t0 = time.time()
-        query_emb, query_seqs, query_ids = _load_queries(query_file, vectorizer)
+        query_emb, query_seqs, query_ids = _load_queries(query_file, vectorizer,
+                                                         embed=not long_reads)
         t_embed = time.time() - t0
         t0 = time.time()
-        neighbors, distances = _search(engine, query_emb, k_clusters, ef,
-                                       search_stats)
+        neighbors = distances = None
+        if not long_reads:
+            # the long-read path searches its chunk batch below instead
+            neighbors, distances = _search(engine, query_emb, k_clusters, ef,
+                                           search_stats)
         t_search = time.time() - t0
 
     os.makedirs(output_dir, exist_ok=True)
@@ -328,6 +429,26 @@ def run_pipeline(
         print("[MAIN] WARNING: --mapq ignored (no SAM output without query "
               "sequences)")
         mapq = False
+    if long_reads:
+        if not have_seqs:
+            raise ValueError(
+                "--long-reads needs query SEQUENCES (precomputed embeddings "
+                "only cover the first ~121 bases of each read)")
+        if cigar and not native.available():
+            print("[MAIN] WARNING: --cigar needs the native library (banded "
+                  "long-read aligner); skipping")
+            cigar = False
+        for flag, name, why in (
+                (use_streaming, "use_streaming", ""),
+                (rerank == "sw", "--rerank sw", " (placements are chunk-support "
+                 "chains, not SW-reranked)"),
+                (dense_rerank, "--dense-rerank", "")):
+            if flag:
+                print(f"[MAIN] WARNING: {name} ignored with --long-reads{why}")
+        use_streaming, rerank, dense_rerank = False, "l2", False
+        # support-margin MAPQ is intrinsic to chain voting: long-read
+        # primaries and their supplementaries always score on that scale
+        mapq = True
     if dense_rerank and stride == 1 and (not have_seqs or rerank == "sw"):
         print("[MAIN] WARNING: --dense-rerank ignored ("
               + ("precomputed query embeddings carry no sequences"
@@ -343,11 +464,13 @@ def run_pipeline(
           f" k_clusters={k_clusters} rerank={rerank}"
           + (" dense_rerank" if dense_rerank else "")
           + (" cigar" if cigar else "")
-          + (" mapq" if mapq else ""))
+          + (" mapq" if mapq else "")
+          + (" long_reads" if long_reads else ""))
 
     t0 = time.time()
     final_ids = final_d = None
     records = None
+    lr_timings = None
     if have_seqs:
         records = fasta_io.parse_fasta_records(ref_file)
         multi = len(records) > 1
@@ -406,7 +529,14 @@ def run_pipeline(
             return _primary_alignment_cigars(seqs, primary_ids, genome, ref_len,
                                              multi, dense_off, base_off)
 
-        if rerank == "sw":
+        if long_reads:
+            t1 = time.time()
+            final_ids, final_d, lr_timings = _map_long(
+                query_seqs, query_ids, vectorizer, engine, genome, ref_len, k, ef,
+                stride, lr_max_chunks, multi, dense_off, sparse_off, base_off,
+                sam_file if write_sam else None, cigar, sam_kw)
+            t_search = time.time() - t1
+        elif rerank == "sw":
             def fetch_windows(ids: np.ndarray):
                 if multi:
                     ids = fasta_io.translate_window_ids(ids, dense_off, base_off)
@@ -485,34 +615,28 @@ def run_pipeline(
                     primary_tags=pt, mapq=mq, **sam_kw,
                 )
     if write_sam and os.path.exists(sam_file):
-        if sort:
-            sam_io.sort_sam_file(sam_file)
-        if mark_dups:
-            nd = sam_io.mark_duplicates(sam_file)
-            if nd:
-                print(f"[MAIN] marked {nd} duplicate lines (FLAG 0x400)")
-        if bam:
-            bam_file = os.path.join(output_dir, "results.bam")
-            # a BAI is valid only over coordinate-sorted records; drop a
-            # stale index from an earlier sorted run into the same dir
-            if not sort and os.path.exists(bam_file + ".bai"):
-                os.remove(bam_file + ".bai")
-            sam_to_bam(sam_file, bam_file,
-                       bai_path=bam_file + ".bai" if sort else None)
+        _finish_sam(sam_file, output_dir, sort, mark_dups, bam)
     t_post = time.time() - t0
+    if long_reads:
+        t_post -= t_search  # the chain path's search ran inside this timer
 
     # a streamed run's output is its SAM alone, as in the JAX package
     if not use_streaming:
         npys = (os.path.join(output_dir, "indices.npy"),
                 os.path.join(output_dir, "distances.npy"))
-        if dense_rerank and stride == 1 and rerank != "sw" and final_d is not None:
+        if long_reads:
+            # chained read-start placements; "distances" are 1 - the
+            # chunk-support fraction (ascending better)
+            save_results(final_ids, final_d, *npys, k)
+        elif dense_rerank and stride == 1 and rerank != "sw" and final_d is not None:
             save_results(final_ids, final_d, *npys, k)
         else:
             # raw search results: k columns dense, k_clusters sparse
             save_results(neighbors, distances, *npys,
                          k if stride == 1 else k_clusters)
     return {
-        "num_queries": int(query_emb.shape[0]),
+        "num_queries": (len(query_seqs) if query_emb is None
+                        else int(query_emb.shape[0])),
         "k": k,
         "k_clusters": k_clusters,
         "stride": stride,
@@ -527,4 +651,300 @@ def run_pipeline(
         "t_embed": t_embed,
         "t_search": t_search,
         "t_post": t_post,
+        "t_lr_split": lr_timings,
+    }
+
+
+def _promote(ids, d, chosen):
+    """Swap each row's chosen pair member into the primary column; a rescued
+    id absent from the candidate list overwrites column 0 (its npy distance
+    keeps the displaced value: rescue scores live on the SW scale, not the
+    engine's)."""
+    ids = ids.copy()
+    d = d.copy()
+    for i in range(ids.shape[0]):
+        if chosen[i] < 0 or ids[i, 0] == chosen[i]:
+            continue
+        js = np.flatnonzero(ids[i] == chosen[i])
+        if js.size:
+            j = int(js[0])
+            ids[i, 0], ids[i, j] = ids[i, j], ids[i, 0]
+            d[i, 0], d[i, j] = d[i, j], d[i, 0]
+        else:
+            ids[i, 0] = chosen[i]
+    return ids, d
+
+
+def _rescue(pair, ids1, d1, ids2, d2, sgn, seqs1, seqs2, lens1, lens2, records,
+            dense_off, ref_len, max_isize, min_isize):
+    """Mate rescue for the improper pairs: scan the expected FR mate
+    interval next to the better-scoring end with the native SW scorer,
+    clipped to the anchor's record; a hit makes the pair proper with an
+    SW-identity MAPQ on the rescued end.  Updates pair in place; returns the
+    number of pairs rescued."""
+    multi = dense_off is not None
+    if multi:
+        base_off = fasta_io.record_window_table(records, ref_len, 1)[1]
+
+        def _rec(bpos):
+            return int(np.clip(np.searchsorted(base_off, bpos, side="right") - 1,
+                               0, len(base_off) - 2))
+
+        def _to_base(aid):
+            return int(fasta_io.translate_window_ids(np.asarray([aid]), dense_off,
+                                                     base_off)[0])
+
+        def _to_dense(base_id):
+            r = _rec(base_id >> 1)
+            # clamp into the record's stride-1 window grid: a mate shorter
+            # than ref_len rescued within the record's last (ref_len -
+            # mate_len) bases shifts left by at most that difference
+            loc = min(int((base_id >> 1) - base_off[r]),
+                      int(dense_off[r + 1] - dense_off[r] - 1))
+            return 2 * (int(dense_off[r]) + loc) + (base_id & 1)
+
+        def _bounds(base_id):
+            r = _rec(base_id >> 1)
+            return int(base_off[r]), int(base_off[r + 1])
+    else:
+        total = int(sum(len(r) for r in records))
+
+        def _to_base(aid):
+            return aid
+
+        def _to_dense(base_id):
+            return int(base_id)
+
+        def _bounds(_base_id):
+            return 0, total
+    genome = records[0] if len(records) == 1 else np.concatenate(records)
+    # anchor confidence = its single-end margin: an ambiguous anchor must
+    # not mint a confident rescued pair
+    se1 = compute_mapq(ids1, sgn * d1, ref_len, dense_off=dense_off)
+    se2 = compute_mapq(ids2, sgn * d2, ref_len, dense_off=dense_off)
+    anchors, targets, alens, bounds, tgt_end = [], [], [], [], []
+    for i in np.flatnonzero(~pair["proper"]):
+        use1 = sgn * d1[i, 0] <= sgn * d2[i, 0]  # anchor: the better top hit
+        aid = int(ids1[i, 0] if use1 else ids2[i, 0])
+        if aid < 0:
+            continue
+        base_aid = _to_base(aid)
+        anchors.append(base_aid)
+        alens.append(int(lens1[i] if use1 else lens2[i]))
+        tread = seqs2[i] if use1 else seqs1[i]
+        targets.append(tread[1:-1] if len(tread) > 2 else tread)
+        bounds.append(_bounds(base_aid))
+        tgt_end.append((i, 2 if use1 else 1))
+    if not anchors:
+        return 0
+    r_ids, r_scores = rescue_mates(
+        np.asarray(anchors), targets, np.asarray(alens), genome, max_isize,
+        min_isize, rec_bounds=np.asarray(bounds, np.int64),
+    )
+    n_rescued = 0
+    for (i, end), rid, rsc in zip(tgt_end, r_ids, r_scores):
+        if rid == PAD_ID:
+            continue
+        did = _to_dense(int(rid))
+        if end == 2:
+            pair["b_id"][i], pair["a_id"][i], lq = did, ids1[i, 0], int(lens2[i])
+        else:
+            pair["a_id"][i], pair["b_id"][i], lq = did, ids2[i, 0], int(lens1[i])
+        pair["proper"][i] = True
+        a_id, b_id = int(pair["a_id"][i]), int(pair["b_id"][i])
+        ap, bp = a_id >> 1, b_id >> 1
+        pair["tlen"][i] = -(ap + int(lens1[i]) - bp) if a_id & 1 else bp + int(lens2[i]) - ap
+        # the rescued end: SW-identity-scaled quality, capped at 40
+        rq = int(min(40, round(60.0 * int(rsc) / max(lq, 1))))
+        if end == 2:
+            pair["mapq2"][i], pair["mapq1"][i] = rq, int(se1[i])
+        else:
+            pair["mapq1"][i], pair["mapq2"][i] = rq, int(se2[i])
+        n_rescued += 1
+    return n_rescued
+
+
+def run_pipeline_paired(
+    index_prefix: str,
+    query_file1: str,
+    query_file2: str,
+    ref_file: str,
+    ef: int | None = None,
+    k: int | None = None,
+    k_clusters: int | None = None,
+    output_dir: str = ".",
+    rerank: str = "l2",
+    dense_rerank: bool = False,
+    write_sam: bool = True,
+    mapq: bool = False,
+    mapq_calibrated: bool = False,
+    qual: bool = False,
+    max_isize: int = 1000,
+    min_isize: int = 0,
+    cigar: bool = False,
+    long_reads: bool = False,
+    use_streaming: bool = False,
+    sort: bool = False,
+    bam: bool = False,
+    mark_dups: bool = False,
+    read_group: str | None = None,
+    rescue: bool = True,
+    vectorizer: Vectorizer | None = None,
+    search_cfg: SearchConfig | None = None,
+    preloaded: tuple | None = None,
+    device=None,
+) -> dict:
+    """Paired-end mapping: both ends run the single-end pipeline against one
+    resident engine, then pipeline/paired.resolve_pairs picks the FR-proper
+    candidate combination per pair, and mate rescue (rescue=True) scans the
+    expected mate interval of each improper pair with the native SW scorer.
+    The SAM gets the paired vocabulary (FLAG 0x1/0x2/0x8/0x20/0x40/0x80,
+    RNEXT '=' or the mate's record, PNEXT, signed TLEN) with each pair's
+    chosen members as primaries; mapq uses the pair margin for proper pairs;
+    indices.npy / distances.npy stack R1's rows, then R2's.  cigar,
+    long_reads and use_streaming are not supported here and are ignored
+    with a warning, as in the JAX package.  Besides the JAX package's keys,
+    the result holds t_index, t_ends (each end's embed and search seconds)
+    and t_pair_split (the host seconds of resolve, rescue and sam).
+    Counterpart of the JAX run_pipeline_paired, in one process."""
+    for flag, name in ((cigar, "--cigar"), (long_reads, "--long-reads"),
+                       (use_streaming, "use_streaming")):
+        if flag:
+            print(f"[MAIN] WARNING: {name} not supported in paired-end "
+                  "mode yet; ignored")
+    device = resolve_device(device)
+    timings = {}
+    t0 = time.time()
+    engine, config = preloaded if preloaded else load_index(index_prefix, device)
+    t_index = time.time() - t0
+    vectorizer = vectorizer_for_index(index_prefix, config, vectorizer, device)
+    ref_len = int(config["ref_len"])
+    common = dict(
+        ef=ef, k=k, k_clusters=k_clusters, output_dir=output_dir, rerank=rerank,
+        dense_rerank=dense_rerank, write_sam=False, vectorizer=vectorizer,
+        search_cfg=search_cfg, preloaded=(engine, config), device=device,
+    )
+    res1 = run_pipeline(index_prefix, query_file1, ref_file, **common)
+    res2 = run_pipeline(index_prefix, query_file2, ref_file, **common)
+
+    def _final(res):
+        if res["final_ids"] is not None:
+            return np.asarray(res["final_ids"]), np.asarray(res["final_d"])
+        return np.asarray(res["neighbors"]), np.asarray(res["distances"])
+
+    ids1, d1 = _final(res1)
+    ids2, d2 = _final(res2)
+    if ids1.shape[0] != ids2.shape[0]:
+        raise ValueError(f"paired inputs differ in read count: {ids1.shape[0]} vs "
+                         f"{ids2.shape[0]}")
+    seqs1, qids1 = res1["query_seqs"], res1["query_ids"]
+    seqs2, qids2 = res2["query_seqs"], res2["query_ids"]
+    if qids1 and qids2 and qids1 != qids2:
+        raise ValueError("paired FASTQs disagree on read names/order (mates must "
+                         "share QNAME row by row; ids are /1 /2-suffix-stripped "
+                         "at parse)")
+    lens1 = np.array([len(s) - 2 for s in seqs1], np.int64)
+    lens2 = np.array([len(s) - 2 for s in seqs2], np.int64)
+
+    t0 = time.time()
+    records = res1["records"] or fasta_io.parse_fasta_records(ref_file)
+    multi = len(records) > 1
+    if multi:
+        dense_off = fasta_io.record_window_table(records, ref_len, 1)[0]
+        rec_names = fasta_io.parse_fasta_names(ref_file)
+        rec_lens = [int(len(r)) for r in records]
+    else:
+        dense_off = rec_names = rec_lens = None
+    # resolve_pairs takes ascending-better scores; SW scores are descending
+    sgn = -1.0 if rerank == "sw" else 1.0
+    pair = resolve_pairs(ids1, sgn * d1, ids2, sgn * d2, lens1, lens2, max_isize,
+                         min_isize, ref_len, dense_off=dense_off)
+    timings["resolve"] = time.time() - t0
+
+    t0 = time.time()
+    n_rescued = 0
+    if rescue and not pair["proper"].all():
+        n_rescued = _rescue(pair, ids1, d1, ids2, d2, sgn, seqs1, seqs2, lens1, lens2,
+                            records, dense_off, ref_len, max_isize, min_isize)
+    if n_rescued:
+        print(f"[MAIN] mate rescue: {n_rescued} pairs recovered by SW scan")
+    timings["rescue"] = time.time() - t0
+
+    t0 = time.time()
+    ids1p, d1p = _promote(ids1, d1, pair["a_id"])
+    ids2p, d2p = _promote(ids2, d2, pair["b_id"])
+
+    def _rname_pos(wid):
+        if wid < 0:
+            return "*", 0
+        w = int(wid) >> 1
+        if multi:
+            r, loc = fasta_io.record_of(np.asarray([w]), dense_off)
+            return rec_names[int(r[0])], int(loc[0]) + 1
+        return "ref", w + 1
+
+    def _mate_dict(my_ids, other_ids, first, tl_sign):
+        out = {}
+        base = 0x1 | (0x40 if first else 0x80)
+        for i in range(my_ids.shape[0]):
+            o = int(other_ids[i, 0])
+            flag = base | (0x2 if pair["proper"][i] else 0)
+            if o < 0:
+                flag |= 0x8
+                rnext, pnext = "=", 0
+            else:
+                if o & 1:
+                    flag |= 0x20
+                rn_o, pnext = _rname_pos(o)
+                rnext = "=" if rn_o == _rname_pos(int(my_ids[i, 0]))[0] else rn_o
+            out[i] = (flag, rnext, pnext, tl_sign * int(pair["tlen"][i]))
+        return out
+
+    mate1 = _mate_dict(ids1p, ids2p, first=True, tl_sign=1)
+    mate2 = _mate_dict(ids2p, ids1p, first=False, tl_sign=-1)
+    mq1 = mq2 = None
+    if mapq:
+        hib = rerank == "sw"
+        s1 = compute_mapq(ids1p, d1p, ref_len, dense_off=dense_off, higher_is_better=hib)
+        s2 = compute_mapq(ids2p, d2p, ref_len, dense_off=dense_off, higher_is_better=hib)
+        mq1 = np.where(pair["proper"], pair["mapq1"], s1).astype(np.int32)
+        mq2 = np.where(pair["proper"], pair["mapq2"], s2).astype(np.int32)
+        if mapq_calibrated:
+            mq1, mq2 = calibrate_mapq(mq1), calibrate_mapq(mq2)
+
+    os.makedirs(output_dir, exist_ok=True)
+    if write_sam:
+        sam_file = os.path.join(output_dir, "results.sam")
+        pg = (f"pipeline-paired {index_prefix} {query_file1} {query_file2} "
+              f"max_isize={max_isize}")
+        sam_kw = dict(record_names=rec_names, record_lens=rec_lens,
+                      dense_off=dense_off, rg=read_group)
+        out_k = ids1p.shape[1]
+        sam_io.write_sam(seqs1, qids1, ids1p.ravel(), "ref", ref_len, out_k, sam_file,
+                         mapq=mq1, quals=parse_fastq_quals(query_file1) if qual else None,
+                         mate=mate1, pg=pg, **sam_kw)
+        sam_io.write_sam(seqs2, qids2, ids2p.ravel(), "ref", ref_len, out_k, sam_file,
+                         append=True, write_header=False, mapq=mq2,
+                         quals=parse_fastq_quals(query_file2) if qual else None,
+                         mate=mate2, **sam_kw)
+        _finish_sam(sam_file, output_dir, sort, mark_dups, bam)
+    save_results(np.vstack([ids1p, ids2p]), np.vstack([d1p, d2p]),
+                 os.path.join(output_dir, "indices.npy"),
+                 os.path.join(output_dir, "distances.npy"), ids1p.shape[1])
+    timings["sam"] = time.time() - t0
+    n_proper = int(pair["proper"].sum())
+    print(f"[MAIN] paired: {n_proper}/{ids1.shape[0]} proper pairs "
+          f"(max_isize {max_isize})")
+    return {
+        "num_pairs": int(ids1.shape[0]),
+        "n_proper": n_proper,
+        "n_rescued": n_rescued,
+        "pair": pair,
+        "t_index": t_index,
+        "t_embed": res1["t_embed"] + res2["t_embed"],
+        "t_search": res1["t_search"] + res2["t_search"],
+        "t_post": res1["t_post"] + res2["t_post"],
+        "t_ends": [(res1["t_embed"], res1["t_search"]), (res2["t_embed"], res2["t_search"])],
+        "t_pair_split": timings,
+        "num_queries": int(ids1.shape[0]) * 2,
     }

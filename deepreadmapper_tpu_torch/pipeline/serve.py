@@ -12,17 +12,20 @@ Protocol (one JSON object per line):
              "ef": 128, "k": 128, "k_clusters": 5,   # optional overrides
              "rerank": "l2", "dense_rerank": false,
              "cigar": false, "mapq": false, "write_sam": true, ...,
+             "long_reads": false,     # true -> chunk -> search -> chain
+             "fastq2": "/path/r2.fastq",        # optional: paired-end, R2
+             "max_isize": 1000, "min_isize": 0, "rescue": true,  # paired
              "search_stats": false}   # true -> effort counters in the
-                                      # response (IVF engines)
+                                      # response (IVF engines; single-end)
   response: {"id": "r1", "ok": true, "num_queries": 150,
              "t_embed": ..., "t_search": ..., "t_post": ...}
   error:    {"id": "r1", "ok": false, "error": "..."}   (daemon stays up)
   shutdown: {"cmd": "quit"}  ->  {"ok": true, "quit": true}
 
-Paired-end requests ("fastq2") and "long_reads" are not ported yet: they
-get an error reply naming ROADMAP.md, and the daemon stays up.  Anything
-the pipeline prints goes to stderr while serving, so the protocol stream
-stays parseable.
+A request with "fastq2" maps the pair (R1 = fastq) through
+run_pipeline_paired; one with "long_reads" through run_pipeline's
+long-read path.  Anything the pipeline prints goes to stderr while
+serving, so the protocol stream stays parseable.
 """
 
 from __future__ import annotations
@@ -32,10 +35,14 @@ import json
 import sys
 import time
 
-from deepreadmapper_tpu_torch import not_ported, resolve_device
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.config import SearchConfig
 from deepreadmapper_tpu_torch.index.registry import load_index
-from deepreadmapper_tpu_torch.pipeline.search import run_pipeline, vectorizer_for_index
+from deepreadmapper_tpu_torch.pipeline.search import (
+    run_pipeline,
+    run_pipeline_paired,
+    vectorizer_for_index,
+)
 
 # request keys forwarded to run_pipeline verbatim (the JAX package's list)
 _REQ_KEYS = (
@@ -43,6 +50,8 @@ _REQ_KEYS = (
     "rerank", "dense_rerank", "write_sam", "cigar", "mapq", "long_reads",
     "qual", "sort", "bam", "mark_dups", "read_group",
 )
+# what a paired request takes besides: run_pipeline_paired's own keys
+_PAIRED_KEYS = ("max_isize", "min_isize", "rescue")
 
 
 def serve(
@@ -100,13 +109,22 @@ def serve(
         try:
             with contextlib.redirect_stdout(sys.stderr):
                 if "fastq2" in req:
-                    raise not_ported("paired-end requests (fastq2)")
-                res = run_pipeline(
-                    index_prefix, req["fastq"], ref_file,
-                    vectorizer=vectorizer, search_cfg=search_cfg,
-                    preloaded=(engine, config), search_stats=stats,
-                    device=device, **kwargs,
-                )
+                    # every request key but use_dynamic, which
+                    # run_pipeline_paired has no parameter for
+                    pkw = {kk: vv for kk, vv in kwargs.items() if kk != "use_dynamic"}
+                    pkw.update({kk: req[kk] for kk in _PAIRED_KEYS if kk in req})
+                    res = run_pipeline_paired(
+                        index_prefix, req["fastq"], req["fastq2"], ref_file,
+                        vectorizer=vectorizer, search_cfg=search_cfg,
+                        preloaded=(engine, config), device=device, **pkw,
+                    )
+                else:
+                    res = run_pipeline(
+                        index_prefix, req["fastq"], ref_file,
+                        vectorizer=vectorizer, search_cfg=search_cfg,
+                        preloaded=(engine, config), search_stats=stats,
+                        device=device, **kwargs,
+                    )
             served += 1
             resp = {
                 **tag,

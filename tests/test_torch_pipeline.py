@@ -89,8 +89,8 @@ def test_cli_refuses_unported_features(data_dir, tmp_path):
         ["build-index", fna, str(tmp_path / "a"), "150", "--index-type", "HNSWPQ"],
         ["build-index", fna, str(tmp_path / "a"), "150", "--distributed"],
         ["build-index", fna, str(tmp_path / "a"), "150", "--shards", "2"],
-        ["pipeline", str(tmp_path / "a"), fna, fna, "--paired2", "x"],
-        ["pipeline", str(tmp_path / "a"), fna, fna, "--long-reads"],
+        ["build-index", fna, str(tmp_path / "a"), "150", "--level-mode", "centroid"],
+        ["pipeline", str(tmp_path / "a"), fna, fna, "--distributed"],
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.main([*argv, "--device", "cpu"])
@@ -99,10 +99,10 @@ def test_cli_refuses_unported_features(data_dir, tmp_path):
 def test_port_cli_never_imports_jax(data_dir, tmp_path):
     """build-index -> pipeline through the port's CLI in a fresh process
     (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8, finetune ->
-    build-index --weights -> pipeline, the SAM options, inference, info)
-    with serve, bench, io.bam, io.npy_stream and ops.pack imported, then
-    assert that neither jax nor any module of the JAX package was
-    imported."""
+    build-index --weights -> pipeline, the SAM options, inference,
+    --paired2, --long-reads --cigar, info) with serve, bench, io.bam,
+    io.npy_stream and ops.pack imported, then assert that neither jax nor
+    any module of the JAX package was imported."""
     code = (
         "import sys\n"
         "from deepreadmapper_tpu_torch import cli\n"
@@ -132,6 +132,10 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
         "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '8', '5', d + '/sam_out',"
         " '--mapq', '--cigar', '--qual', '--sort', '--bam', '--mark-duplicates', *dev]) == 0\n"
         "assert cli.main(['inference', fq, '150', d + '/emb.npy', *dev]) == 0\n"
+        "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '4', '5', d + '/pe_out',"
+        " '--paired2', fq, '--mapq', *dev]) == 0\n"
+        "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '4', '5', d + '/lr_out',"
+        " '--long-reads', '--cigar', *dev]) == 0\n"
         "assert cli.main(['info', d + '/idx']) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = sorted(m for m in sys.modules if m == 'deepreadmapper_tpu'"
@@ -151,6 +155,8 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     assert os.path.exists(tmp_path / "tuned_out" / "indices.npy")
     assert os.path.exists(tmp_path / "sam_out" / "results.bam")
     assert os.path.exists(tmp_path / "emb.npy")
+    assert os.path.exists(tmp_path / "pe_out" / "results.sam")
+    assert os.path.exists(tmp_path / "lr_out" / "results.sam")
 
 
 @pytest.mark.parametrize("cmd", ["build-index", "pipeline", "finetune", "inference",

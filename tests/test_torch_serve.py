@@ -70,9 +70,9 @@ def test_serve_answers_requests_equal_to_the_one_shot_pipeline(idx, data_dir, tm
 
 
 def test_serve_survives_bad_requests(idx, data_dir, tmp_path):
-    """Bad JSON, a request with no fastq, a paired request (fastq2), a
-    long-read request and a failing request each get an error reply; the
-    daemon stays up and answers the next request."""
+    """Bad JSON, a request with no fastq and a failing request each get an
+    error reply; the daemon stays up and answers the requests after them: a
+    paired request (fastq2), a long-read request, a plain one."""
     fq = str(data_dir / "test_data.fastq")
     n, lines = _run(idx, data_dir, [
         "{not json",
@@ -85,17 +85,18 @@ def test_serve_survives_bad_requests(idx, data_dir, tmp_path):
         {"cmd": "quit"},
         {"id": "after", "fastq": fq},
     ])
-    assert n == 1
+    assert n == 3
     ready, bad_json, nofq, pair, lr, missing, ok, quit_ = lines
     assert ready["ready"]
     assert not bad_json["ok"] and "bad request json" in bad_json["error"]
     assert nofq == {"id": "nofq", "ok": False, "error": "missing 'fastq'"}
-    for r in (pair, lr):
-        assert not r["ok"] and "not ported" in r["error"] and "ROADMAP.md" in r["error"]
+    assert pair["id"] == "pair" and pair["ok"] and pair["num_queries"] == 300
+    assert lr["id"] == "lr" and lr["ok"] and lr["num_queries"] == 150
     assert missing["id"] == "bad" and not missing["ok"]
     assert ok["ok"] and ok["num_queries"] == 150
     assert quit_["quit"]
-    assert not os.path.exists(tmp_path / "p")
+    assert np.load(tmp_path / "p" / "indices.npy").shape[0] == 300  # R1's rows, then R2's
+    assert np.load(tmp_path / "l" / "indices.npy").shape[0] == 150
 
 
 def test_serve_search_stats_for_an_ivf_index(tmp_path_factory, data_dir, tmp_path):

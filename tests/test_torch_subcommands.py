@@ -102,14 +102,20 @@ def test_info_gen_ref_plan_match_jax_cli(data_dir, tmp_path):
 
 
 def test_plan_defaults_to_the_card_memory(monkeypatch):
-    """Without --hbm-gb, plan sizes against the visible card's memory, and
-    against 80 GB (the H100's) with no card visible."""
+    """Without --hbm-gb, plan sizes against the visible card's memory less
+    the search's scan workspace (9.2 GB, measured on the H100), and against
+    80 GB (the H100's) less it with no card visible."""
     from deepreadmapper_tpu_torch import cli as tcli
 
+    assert tcli._SCAN_WORKSPACE_GB == 9.2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, text = _run(tcli, ["plan", "3.1e9"])
-    assert text == _run(tcli, ["plan", "3.1e9", "--hbm-gb", "80"])[1]
-    assert text != _run(tcli, ["plan", "3.1e9", "--hbm-gb", "12"])[1]
+    assert text == _run(tcli, ["plan", "3.1e9", "--hbm-gb", "70.8"])[1]
+    assert text != _run(tcli, ["plan", "3.1e9", "--hbm-gb", "80"])[1]
+    # a genome whose dense INT8FLAT index (74.2 GB) fits 80 GB but not 70.8:
+    # the default recommends the sparse stride
+    assert "vectors at stride 4 " in _run(tcli, ["plan", "2.9e8"])[1]
+    assert "vectors at stride 1 " in _run(tcli, ["plan", "2.9e8", "--hbm-gb", "80"])[1]
 
     class Props:
         total_memory = 40e9
@@ -117,7 +123,7 @@ def test_plan_defaults_to_the_card_memory(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda i: Props)
     _, text = _run(tcli, ["plan", "3.1e9"])
-    assert text == _run(tcli, ["plan", "3.1e9", "--hbm-gb", "40"])[1]
+    assert text == _run(tcli, ["plan", "3.1e9", "--hbm-gb", "30.8"])[1]
 
 
 @pytest.mark.parametrize("cmd", ["info", "plan", "gen-ref"])
