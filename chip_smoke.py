@@ -56,6 +56,19 @@ Phases (any failure raises and the exit code is not 0):
               precision, FLAG 2048, SEQ + CIGAR + MD rebuild the genome,
               the host_pack / embed / search / chain split, the scan's
               workspace above the resident index)
+ 12. genome_hnsw the graph engines at the reference's default index parameters
+              (M_pq 8, nbits 8, M_hnsw 16, EFC 200, ef 128), 8192 reads: (a)
+              HNSWPQ by the native insert builder on a seeded 20 kbp genome
+              (39,702 windows), recall@10 against the exact fp32 top-10
+              (first 1024 reads: against the JAX package's CPU reading) and
+              overlap@64 with the exhaustive scan of the index's own codes;
+              (b) the same genome at stride 4 with k_clusters 5 (the
+              re-embed + L2 rerank), SAM top-1 on the first 1024 reads
+              against the JAX package's CPU reading; (c) HNSWFLAT
+              --build-mode knn --level-mode centroid on a seeded 100 kbp
+              genome (199,702 windows, kNN graph on the card), recall@10;
+              the build splits, search times, reads/s, effort counters and a
+              profile of one search
 Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
 results line), holds the four IVF chunk scans against their plain versions
 on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
@@ -121,6 +134,21 @@ PE_REPEAT_FRAC, PE_REPEAT_BLOCK = 0.05, 2_000
 JAX_PE_TOP1 = (0.9451, 0.9468)
 # phase 11's long reads: scripts/eval_longread.py's grid at its default size
 LR_LENS, LR_ERRS, LR_READS = (1_000, 5_000), (0.01, 0.05), 256
+# phase 12: the reference's default index parameters (BASELINE.md: M_pq 8,
+# nbits 8, M_hnsw 16, EFC 200, ef 128 -- build-index's and pipeline's defaults)
+HNSW_GENOME_BP = 20_000             # 39,702 windows: the README's "sim 40k win" row
+HNSW_KNN_GENOME_BP = 100_000        # 199,702 windows: results/centroid_levels_r2.json's genome
+HNSW_EF = 128
+HNSW_SPARSE_STRIDE = 4
+HNSW_GATE_READS = 1024             # (a) and (b) are gated on the first 1024 reads
+HNSW_SPARSE_ARGS = (str(HNSW_EF), "10", "5")  # ef, k, k_clusters: 5 hits x 7 windows
+# (a)'s recall@10 and (b)'s top-1 (first HNSW_GATE_READS reads) that the JAX
+# package reaches on the CPU on the same seeded inputs: `python
+# scripts/hnsw_cpu_size.py --package jax` prints them.  Recorded, not measured
+# here (no JAX import).
+JAX_HNSW_RECALL10 = 0.7844  # the port on the CPU: 0.7846; the exhaustive scan of the codes: 0.7838
+JAX_HNSW_SPARSE_TOP1 = 942 / HNSW_GATE_READS  # 0.9199; a second run 940 (the native build
+# inserts in parallel above 1,024 rows); the port on the CPU: 942 in two runs
 # bwa's tab form with literal "\t" escapes; io.sam.parse_read_group (both
 # packages) takes the fields without bwa's leading "@RG"
 SAM_RG = "ID:smoke\\tSM:s1"
@@ -2289,6 +2317,216 @@ def phase_genome_lr(genome: dict):
     shutil.rmtree(work, ignore_errors=True)
 
 
+_HNSW_GROUPS = (  # kernel-name fragment -> part of an HNSW beam search
+    ("gru", "gru_fwd"), ("sort", "merge (sort)"), ("index", "gathers"), ("gather", "gathers"),
+    ("reduce", "reductions"), ("elementwise", "elementwise"), ("cat", "concat"),
+    ("gemm", "matmul"), ("memcpy", "copies"),
+)
+
+
+class _BuildTimings:
+    """Hands a timings dict to every build_index call the CLI makes while
+    entered: the build split of a build-index command."""
+
+    def __init__(self):
+        self.t = {}
+
+    def __enter__(self):
+        from deepreadmapper_tpu_torch.pipeline import build
+
+        self.orig = orig = build.build_index
+
+        def timed(*a, **kw):
+            return orig(*a, timings=self.t, **kw)
+
+        build.build_index = timed
+        return self.t
+
+    def __exit__(self, *exc):
+        from deepreadmapper_tpu_torch.pipeline import build
+
+        build.build_index = self.orig
+
+
+def _hnsw_build(tag: str, argv: list) -> tuple[float, dict]:
+    """build-index through the CLI; logs and returns (seconds, split)."""
+    import torch
+
+    from deepreadmapper_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with _BuildTimings() as bt:
+        if cli.main(["build-index", *argv]) != 0:
+            raise AssertionError(f"{tag} build-index failed")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    split = " | ".join(f"{k} {bt[k]:.2f} s" for k in
+                       ("embed", "graph", "levels", "exact_knn", "prune", "reverse_rank",
+                        "upper_levels", "pq", "save") if k in bt)
+    log(f"[{tag}] build-index {' '.join(argv[3:])}: {t_build:.2f} s; {split}")
+    return t_build, bt
+
+
+def _hnsw_pipeline(tag: str, argv: list) -> float:
+    import torch
+
+    from deepreadmapper_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    if cli.main(["pipeline", *argv]) != 0:
+        raise AssertionError(f"{tag} pipeline failed")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _recall(ids: np.ndarray, oracle: np.ndarray) -> float:
+    """Mean share of each row of oracle found in the same row of ids."""
+    k = oracle.shape[1]
+    return float(np.mean([np.intersect1d(a, b).size / k for a, b in zip(ids, oracle)]))
+
+
+def phase_genome_hnsw():
+    """The graph engines at the reference's default index parameters:
+    (a) HNSWPQ, insert build, dense, 39,702 windows; (b) the same genome at
+    stride 4 with the re-embed + L2 rerank; (c) HNSWFLAT by the kNN builder
+    on the card with centroid levels, 199,702 windows.  #1 (gru_fwd) embeds
+    the windows and reads of each part and the sparse rerank's windows."""
+    import torch
+
+    from deepreadmapper_tpu_torch import default_device, kernels, native
+    from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
+    from deepreadmapper_tpu_torch.index.registry import load_index
+    from deepreadmapper_tpu_torch.io import fasta as fasta_io
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.ops.topk import l2_topk
+    from deepreadmapper_tpu_torch.pipeline.build import embed_fasta_windows
+
+    if not native.available():  # the Python insert builder would look like a hang
+        raise AssertionError("genome_hnsw: the native library did not build")
+    dev = default_device()
+    vec = Vectorizer()
+    lengths = np.full(N_READS, READ_LEN + 2)
+
+    def steady(tag, engine, mat, q, k):
+        """The index resident: embed + search of the reads mat (median of
+        3), the search alone, its effort counters and a profile of one
+        search of their embeddings q."""
+        engine.search(q, k, ef=HNSW_EF)  # warm
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            qq = vec.vectorize_wrapped_bytes(mat, lengths)
+            t1 = time.perf_counter()
+            engine.search(qq, k, ef=HNSW_EF)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0, time.perf_counter() - t1))
+        t_all, t_search = (float(np.median([r[i] for r in reps])) for i in (0, 1))
+        stats = {}
+        engine.search(q[:1], k, ef=HNSW_EF, stats=stats)
+        log(f"[{tag}] steady embed+search: {N_READS} reads in {t_all:.3f} s "
+            f"({N_READS / t_all:.0f} reads/s; median of 3); the search alone {t_search:.3f} s "
+            f"({N_READS / t_search:.0f} reads/s) at ef {HNSW_EF}, k {k}; counters {stats}")
+        _profile(tag, "search", lambda: engine.search(q, k, ef=HNSW_EF), 1, _HNSW_GROUPS)
+
+    # (a) HNSWPQ, dense: recall@10 against the exact fp32 top-10, overlap@64
+    # with the exhaustive scan over the index's own codes and codebook
+    work = os.path.join(WORK, "genome_hnsw")
+    os.makedirs(work, exist_ok=True)
+    ref, fq, starts, strands, mat, _ = simulate(work, HNSW_GENOME_BP, N_READS)
+    idx, out = os.path.join(work, "hnswpq"), os.path.join(work, "hnswpq_out")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    _hnsw_build("genome_hnsw a", [ref, idx, str(READ_LEN), "--index-type", "HNSWPQ"])
+    t_pipe = _hnsw_pipeline("genome_hnsw a", [idx, fq, ref, str(HNSW_EF), "128", "128", out,
+                                              "--no-sam"])
+    launches = kernels.counts()
+    log(f"[genome_hnsw a] pipeline (load, embed, search {N_READS} reads, write): "
+        f"{t_pipe:.2f} s; launches {launches}; max_memory_allocated in build + pipeline "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ids = np.load(os.path.join(out, "indices.npy")).astype(np.int64)
+    q = vec.vectorize_wrapped_bytes(mat, lengths)
+    windows = embed_fasta_windows(fasta_io.parse_fasta_records(ref), READ_LEN, 1, vec)
+    _, oracle = l2_topk(q, windows, 10, device=dev)
+    oracle = oracle.cpu().numpy()
+    n = HNSW_GATE_READS
+    recall, recall_all = _recall(ids[:n, :10], oracle[:n]), _recall(ids[:, :10], oracle)
+    engine, _ = load_index(idx)
+    adc = PQFlatIndex(engine.codes, engine.codebook, engine.ntotal, device=dev)
+    a_ids, _ = adc.search(q, 64, exact=True)
+    overlap, ceiling = _recall(ids[:, :64], a_ids), _recall(a_ids[:n, :10], oracle[:n])
+    top1 = _top1(ids, starts, strands)
+    log(f"[genome_hnsw a] {engine.ntotal} windows: recall@10 against the exact fp32 top-10 "
+        f"on the first {n} reads {recall:.4f} (need >= the JAX package's CPU reading "
+        f"{JAX_HNSW_RECALL10:.4f} - 0.01 and >= this run's exhaustive scan of its codes on "
+        f"those reads {ceiling:.4f} - 0.01), on all {N_READS} {recall_all:.4f}; overlap@64 "
+        f"with that scan {overlap:.4f} (need >= 0.90); top-1 (position +-5 bp and strand) "
+        f"{top1:.4f}")
+    steady("genome_hnsw a", engine, mat, q, 128)
+    bad = []
+    if recall < max(JAX_HNSW_RECALL10, ceiling) - 0.01 or overlap < 0.90:
+        bad.append(f"(a) recall@10 {recall}, overlap@64 {overlap}")
+    if launches["gru_fwd"] <= 0:
+        bad.append(f"(a) launches {launches}")
+    del engine, adc
+
+    # (b) the same genome at stride 4: 5 hits x 7 re-embedded windows, L2 rerank
+    idx, out = os.path.join(work, "sparse"), os.path.join(work, "sparse_out")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    _hnsw_build("genome_hnsw b", [ref, idx, str(READ_LEN), str(HNSW_SPARSE_STRIDE),
+                                  "--index-type", "HNSWPQ"])
+    t_pipe = _hnsw_pipeline("genome_hnsw b", [idx, fq, ref, *HNSW_SPARSE_ARGS, out])
+    launches = kernels.counts()
+    pos, strand = sam_primaries(os.path.join(out, "results.sam"))
+    top1_all = float(np.mean((np.abs(pos - starts) <= 5) & (strand == strands)))
+    top1 = float(np.mean((np.abs(pos[:n] - starts[:n]) <= 5) & (strand[:n] == strands[:n])))
+    log(f"[genome_hnsw b] stride {HNSW_SPARSE_STRIDE}, pipeline {' '.join(HNSW_SPARSE_ARGS)} "
+        f"(load, embed, search, rerank, SAM): {t_pipe:.2f} s ({N_READS / t_pipe:.0f} reads/s); "
+        f"launches {launches}; max_memory_allocated in build + pipeline "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; top-1 on the first {n} reads "
+        f"{top1:.4f} (need >= the JAX package's CPU reading {JAX_HNSW_SPARSE_TOP1:.4f} - 0.01), "
+        f"on all {N_READS} {top1_all:.4f}")
+    if top1 < JAX_HNSW_SPARSE_TOP1 - 0.01:
+        bad.append(f"(b) top-1 {top1}")
+    if launches["gru_fwd"] <= 0:
+        bad.append(f"(b) launches {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # (c) HNSWFLAT, kNN build on the card, centroid levels
+    work = os.path.join(WORK, "genome_hnsw_knn")
+    os.makedirs(work, exist_ok=True)
+    ref, fq, starts, strands, mat, _ = simulate(work, HNSW_KNN_GENOME_BP, N_READS)
+    idx, out = os.path.join(work, "idx"), os.path.join(work, "out")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    _hnsw_build("genome_hnsw c", [ref, idx, str(READ_LEN), "--index-type", "HNSWFLAT",
+                                  "--build-mode", "knn", "--level-mode", "centroid"])
+    t_pipe = _hnsw_pipeline("genome_hnsw c", [idx, fq, ref, str(HNSW_EF), "10", "10", out,
+                                              "--no-sam"])
+    launches = kernels.counts()
+    log(f"[genome_hnsw c] pipeline (load, embed, search {N_READS} reads, write): "
+        f"{t_pipe:.2f} s; launches {launches}; max_memory_allocated in build + pipeline "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    engine, _ = load_index(idx)
+    q = vec.vectorize_wrapped_bytes(mat, lengths)
+    _, oracle = l2_topk(q, engine.vectors, 10, device=dev)
+    ids = np.load(os.path.join(out, "indices.npy")).astype(np.int64)
+    recall = _recall(ids, oracle.cpu().numpy())
+    log(f"[genome_hnsw c] {engine.ntotal} windows, {engine.graph.max_level} upper levels: "
+        f"recall@10 against the exact fp32 top-10 {recall:.4f} (need >= 0.99); top-1 "
+        f"{_top1(ids, starts, strands):.4f}")
+    steady("genome_hnsw c", engine, mat, q, 10)
+    if recall < 0.99:
+        bad.append(f"(c) recall@10 {recall}")
+    if launches["gru_fwd"] <= 0:
+        bad.append(f"(c) launches {launches}")
+    del engine
+    shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"genome_hnsw: {bad}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = phase_device()
@@ -2328,6 +2566,10 @@ def main() -> int:
     log(f"[time] phase 11 (genome_pe {t_pe:.1f} s, genome_lr "
         f"{time.perf_counter() - t11 - t_pe:.1f} s) in {time.perf_counter() - t11:.1f} s; "
         f"phases 1-11 in {time.perf_counter() - t0:.1f} s")
+    t12 = time.perf_counter()
+    phase_genome_hnsw()
+    log(f"[time] phase 12 (genome_hnsw) in {time.perf_counter() - t12:.1f} s; phases 1-12 in "
+        f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -5,7 +5,8 @@ positional arguments of ``deepreadmapper_tpu/cli.py``:
                use_dynamic use_streaming] [--cigar --mapq ... --profile DIR]
                [--paired2 R2 | --paired-interleaved] [--long-reads]
   build-index  <ref> <index_prefix> <ref_len> [stride M_pq nbits M_hnsw EFC]
-               [--weights tuned.npz --resume]
+               [--index-type T --build-mode insert|knn --level-mode rng|centroid
+                --weights tuned.npz --resume]
   serve        <index_prefix> <ref> (JSONL requests on stdin)
   inference    <seqs> <ref_len> [out.npy] [batch]
   finetune     <ref> <ref_len> [-o tuned.npz --steps --batch --lr ...]
@@ -32,7 +33,7 @@ from deepreadmapper_tpu_torch import not_ported, resolve_device
 # Flags of the JAX CLI whose features are not ported yet (ROADMAP.md).
 _PIPELINE_UNPORTED = ("--distributed",)
 _BUILD_UNPORTED = ("--distributed",)
-_BUILD_UNPORTED_VALUED = ("--shards", "--level-mode", "--build-mode")
+_BUILD_UNPORTED_VALUED = ("--shards",)
 # plan's card memory without a visible card: the H100's 80 GB
 _DEFAULT_HBM_GB = 80.0
 # Device memory an INT8FLAT search needs beside its resident index: an
@@ -135,12 +136,21 @@ def _add_build(sub):
                    help="INT8FLAT (default: exhaustive int8 scan) | FLAT "
                         "(exact fp32) | PQFLAT (exhaustive PQ scan, 8 B/vector "
                         "at M_pq 8) | IVFINT8 (cluster-pruned int8 scan; EF "
-                        "acts as nprobe) | IVFPQ (cluster-pruned PQ scan); "
-                        "other engines are not ported yet")
+                        "acts as nprobe) | IVFPQ (cluster-pruned PQ scan) | "
+                        "HNSWPQ (the reference-parity engine: HNSW graph + "
+                        "PQ codes, ADC beam search; EF is the beam width) | "
+                        "HNSWFLAT (HNSW graph over fp32 vectors)")
     p.add_argument("--opq", action="store_true",
                    help="learn an OPQ rotation before PQ (PQFLAT/IVFPQ)")
     p.add_argument("--nlist", type=int, default=0,
                    help="IVF coarse clusters (0 = auto, ~sqrt(N))")
+    p.add_argument("--level-mode", default="rng", choices=["rng", "centroid"],
+                   help="HNSW level assignment: seeded exponential RNG "
+                        "(default) or hnswm's deterministic centroid-"
+                        "partition medoids")
+    p.add_argument("--build-mode", default="insert", choices=["insert", "knn"],
+                   help="HNSW construction: incremental insert on the host "
+                        "(default) or the kNN-graph builder on the device")
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="fine-tuned encoder weights npz (finetune output): "
                         "embeds the windows and is copied into the index, "
@@ -503,8 +513,10 @@ def main(argv=None) -> int:
             nbits=args.nbits,
             m_hnsw=args.M_hnsw,
             efc=args.EFC,
+            build_mode=args.build_mode,
             opq=args.opq,
             nlist=args.nlist,
+            level_mode=args.level_mode,
         )
         config = build_index(
             args.ref_file,

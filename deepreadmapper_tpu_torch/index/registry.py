@@ -29,6 +29,7 @@ def load_index(index_prefix: str, device: torch.device | str | None = None):
     # the engines register themselves on import
     from deepreadmapper_tpu_torch.index import (  # noqa: F401
         flat,
+        hnsw,
         int8_flat,
         ivf_int8,
         ivf_pq,

@@ -221,3 +221,37 @@ def pq_reconstruct(codes: np.ndarray, codebook: PQCodebook) -> np.ndarray:
     cent = _host_f32(codebook.centroids)
     parts = [cent[j][codes[:, j].astype(np.int64)] for j in range(codebook.m)]
     return np.concatenate(parts, axis=1)
+
+
+def adc_tables(queries, cent: torch.Tensor) -> torch.Tensor:
+    """[Q, d] -> ADC tables [Q, m, ksub] of squared sub-distances
+    ||q||^2 - 2 q.c + ||c||^2, summed in the JAX package's order, on the
+    codebook's device."""
+    q = _split(as_f32(queries, cent.device), cent.shape[0])  # [m, Q, dsub]
+    return _sq_dists(q, cent).permute(1, 0, 2).contiguous()
+
+
+def adc_distances_gather(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """tables [Q, m, ksub], codes [C, m] -> distances [Q, C] (gather form):
+    the sum over m of tables[q, m, codes[c, m]]."""
+    m = tables.shape[1]
+    c = codes.long().T  # [m, C]
+    picked = torch.stack([tables[:, j, c[j]] for j in range(m)])  # [m, Q, C]
+    return picked.sum(dim=0)
+
+
+def codes_to_onehot(codes: torch.Tensor, ksub: int = 256) -> torch.Tensor:
+    """[C, m] uint8 -> bf16 one-hot [C, m*ksub] (exact 0/1 values)."""
+    c, m = codes.shape
+    flat = codes.long() + torch.arange(m, device=codes.device) * ksub  # [C, m]
+    out = torch.zeros((c, m * ksub), dtype=torch.bfloat16, device=codes.device)
+    return out.scatter_(1, flat, 1.0)
+
+
+def adc_distances_onehot(tables: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """tables [Q, m, ksub], onehot [C, m*ksub] -> [Q, C] as one matmul.
+    The table is rounded to bf16 as in the JAX package; the product of a
+    bf16 entry and a 0/1 is exact, and the sum accumulates in fp32 (a bf16
+    matmul here would round its output to bf16)."""
+    t_flat = tables.reshape(tables.shape[0], -1).to(torch.bfloat16).float()
+    return t_flat @ onehot.float().T

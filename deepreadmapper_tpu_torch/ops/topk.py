@@ -44,22 +44,24 @@ def _scores(q, r, qn):
 
 
 def l2_topk(queries, refs, k: int, chunk: int = 262144,
-            device: torch.device | str | None = None):
+            device: torch.device | str | None = None, select=smallest_k):
     """Exact top-k by squared L2.  queries [Q,D], refs [N,D] (numpy or
     tensors) -> (dists [Q,k] f32, ids [Q,k] int64) sorted ascending; ties
-    go to the lower id; with fewer than k refs the tail is _BIG / -1."""
+    go to the lower id; with fewer than k refs the tail is _BIG / -1.
+    select(scores, k) picks each score tile's k: any function with
+    smallest_k's answer."""
     q = as_f32(queries, device)
     r = as_f32(refs, q.device)
     n = r.shape[0]
     k_eff = min(k, n)
     qn = torch.sum(q * q, dim=-1)
     if n <= chunk:
-        d, i = smallest_k(_scores(q, r, qn), k_eff)
+        d, i = select(_scores(q, r, qn), k_eff)
     else:
         d = torch.full((q.shape[0], k_eff), _BIG, dtype=torch.float32, device=q.device)
         i = torch.zeros((q.shape[0], k_eff), dtype=torch.int64, device=q.device)
         for start in range(0, n, chunk):
-            dc, ic = smallest_k(_scores(q, r[start : start + chunk], qn), k_eff)
+            dc, ic = select(_scores(q, r[start : start + chunk], qn), k_eff)
             d, i = merge_smallest_k(d, i, dc, ic + start, k_eff)
     if k_eff < k:
         pad = k - k_eff

@@ -3,8 +3,8 @@
 engine files.
 
 Counterpart of ``deepreadmapper_tpu/pipeline/build.py`` for the FLAT,
-INT8FLAT, PQFLAT, IVFINT8 and IVFPQ engines.  The on-disk result is the JAX package's:
-either package loads an index the other built.
+INT8FLAT, PQFLAT, IVFINT8, IVFPQ, HNSWPQ and HNSWFLAT engines.  The on-disk
+result is the JAX package's: either package loads an index the other built.
 """
 
 from __future__ import annotations
@@ -27,10 +27,11 @@ from deepreadmapper_tpu_torch.io.fileio import true_ext
 from deepreadmapper_tpu_torch.io.npy_stream import NpyStreamWriter
 from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
 from deepreadmapper_tpu_torch.io.results import load_embeddings_npy
-from deepreadmapper_tpu_torch.utils.memory import estimate_window_count
+from deepreadmapper_tpu_torch.utils.memory import estimate_index_memory, estimate_window_count
 from deepreadmapper_tpu_torch.utils.progress import Progress
 from deepreadmapper_tpu_torch import not_ported, resolve_device
 from deepreadmapper_tpu_torch.index.flat import FlatIndex
+from deepreadmapper_tpu_torch.index.hnsw import HNSWFlatIndex, HNSWPQIndex
 from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex, quantize
 from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
@@ -39,9 +40,10 @@ from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer, load_p
 from deepreadmapper_tpu_torch.ops import pq as pq_ops
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 
-PORTED_ENGINES = ("INT8FLAT", "FLAT", "PQFLAT", "IVFINT8", "IVFPQ")
+PORTED_ENGINES = ("INT8FLAT", "FLAT", "PQFLAT", "IVFINT8", "IVFPQ", "HNSWPQ", "HNSWFLAT")
 _PQ_ENGINES = ("PQFLAT", "IVFPQ")
 _INT8_ENGINES = ("INT8FLAT", "IVFINT8")
+_HNSW_ENGINES = ("HNSWPQ", "HNSWFLAT")
 INT8_SCALE = 1.0 / 127.0  # encoder outputs are tanh-bounded in [-1, 1]
 
 
@@ -351,7 +353,11 @@ def build_index(
     """Build + persist an index directory; returns the saved config.
     device defaults to the CUDA device (raises without one).  timings, when
     a dict, gets the seconds of each build phase (embed, the IVF engines'
-    kmeans / assign / split_pack, save).  weights: a fine-tuned encoder npz
+    kmeans / assign / split_pack, the HNSW engines' graph and pq and the
+    kNN build's levels / exact_knn / prune / reverse_rank / upper_levels,
+    save).  build_cfg.build_mode (insert | knn) and build_cfg.level_mode
+    (rng | centroid) choose the HNSW graph builder and level assignment.
+    weights: a fine-tuned encoder npz
     (``finetune`` output); the windows are embedded with it and it is
     copied to ``<prefix>/encoder.npz``, which the pipeline then loads for
     the queries.  vectorizer: an encoder already loaded (it must equal
@@ -384,6 +390,14 @@ def build_index(
             # packed codes + fp32 recon norms, over the ~0.8 slab fill
             total = int(nv * (cfg.m_pq + 4) / 0.8)
             detail = f"pq slabs {total / 1e6:.1f}"
+        elif index_type in _HNSW_ENGINES:  # PQ codes or fp32 vectors + graph
+            est = estimate_index_memory(nv, m_pq=cfg.m_pq, nbits=cfg.nbits,
+                                        m_hnsw=cfg.m_hnsw,
+                                        n_train=int(nv * cfg.sample_rate))
+            total = est["total"]
+            if index_type == "HNSWFLAT":
+                total += nv * OUT_SIZE * 4 - est["pq_codes"]
+            detail = f"graph {est['hnsw_graph'] / 1e6:.1f}"
         else:
             total = nv * OUT_SIZE * 4
             detail = f"fp32 vectors {total / 1e6:.1f}"
@@ -441,7 +455,10 @@ def build_index(
         t["embed"] = time.perf_counter() - t0
         if embeddings.shape[0] == 0:
             raise ValueError(f"No sequences found in file: {ref_file}")
-        if index_type in ("PQFLAT", "IVFPQ", "IVFINT8"):
+        if index_type in _HNSW_ENGINES:
+            cls = HNSWPQIndex if index_type == "HNSWPQ" else HNSWFlatIndex
+            engine = cls.build(embeddings, cfg, device, timings=t)
+        elif index_type in ("PQFLAT", "IVFPQ", "IVFINT8"):
             cls = {"PQFLAT": PQFlatIndex, "IVFPQ": IVFPQIndex,
                    "IVFINT8": IVFInt8Index}[index_type]
             engine = cls.build(embeddings, cfg, device)

@@ -32,6 +32,7 @@ from deepreadmapper_tpu_torch.io.fileio import true_ext
 from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
 from deepreadmapper_tpu_torch.io.results import load_embeddings_npy, save_results
 from deepreadmapper_tpu_torch import resolve_device
+from deepreadmapper_tpu_torch.index.hnsw import HNSWPQIndex
 from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.registry import load_index
 from deepreadmapper_tpu_torch.models.encoder import Vectorizer, load_params
@@ -225,8 +226,8 @@ def vectorizer_for_index(index_prefix: str, config: dict,
 
 def _search(engine, query_emb, k_clusters, ef, search_stats):
     """engine.search, with the search-effort counters where the engine keeps
-    them (the IVF engines); others answer without stats."""
-    if search_stats is not None and isinstance(engine, IVFInt8Index):
+    them (the IVF and HNSW engines); others answer without stats."""
+    if search_stats is not None and isinstance(engine, (IVFInt8Index, HNSWPQIndex)):
         return engine.search(query_emb, k_clusters, ef, stats=search_stats)
     return engine.search(query_emb, k_clusters, ef)
 
@@ -361,8 +362,9 @@ def run_pipeline(
     dense_rerank=True re-embeds and exactly reranks the search candidates
     on a dense (stride 1) index on the L2 path; indices.npy / distances.npy
     then hold the reranked sqrt-L2 results.  Otherwise they hold the raw
-    search results.  ef is nprobe for the IVF engines; search_stats, when a
-    dict, receives their search-effort counters (other engines ignore it).
+    search results.  ef is nprobe for the IVF engines and the beam width
+    for the HNSW engines; search_stats, when a dict, receives their
+    search-effort counters (other engines ignore it).
 
     The SAM options follow the JAX package: cigar (real SW-traceback CIGARs
     and NM/MD/AS on primaries), mapq (margin MAPQ; mapq_calibrated maps it

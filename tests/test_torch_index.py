@@ -98,14 +98,22 @@ def test_index_files_cross_load(tmp_path, engine):
 
 
 def test_load_index_refuses_unported(tmp_path):
+    """A JAX-built HNSWPQ index loads (the engine is ported); a sharded
+    index is still refused, naming ROADMAP.md."""
+    from deepreadmapper_tpu.index.hnsw import HNSWPQIndex as JHNSWPQIndex
     from deepreadmapper_tpu.io.configstore import save_config
+    from deepreadmapper_tpu_torch.index.hnsw import HNSWPQIndex
 
-    save_config({"index_type": "HNSWPQ", "stride": 1, "ref_len": 150},
-                str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_index(str(tmp_path), device="cpu")
+    ref = _embeddings(6, 600)
+    JHNSWPQIndex.build(ref).save(str(tmp_path))
+    save_config({"index_type": "HNSWPQ", "stride": 1, "ref_len": 150,
+                 "n_vects": 600, "dim": 128}, str(tmp_path))
+    engine, config = load_index(str(tmp_path), device="cpu")
+    assert isinstance(engine, HNSWPQIndex) and engine.ntotal == 600
+    ids, d = engine.search(ref[:5], 4, ef=32)
+    assert ids.shape == (5, 4) and (ids[:, 0] == np.arange(5)).all()
     (tmp_path / "sharded.txt").write_text("n_shard 2\n")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(NotImplementedError, match="sharded.*ROADMAP.md"):
         load_index(str(tmp_path), device="cpu")
 
 

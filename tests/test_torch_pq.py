@@ -301,3 +301,58 @@ def test_pqflat_build_matches_jax_on_clustered_data():
     np.testing.assert_array_equal(tidx.codes, np.asarray(jidx.codes))
     np.testing.assert_allclose(tidx.codebook.centroids.numpy(),
                                np.asarray(jidx.codebook.centroids), atol=1e-5)
+
+
+def _int_adc_inputs(seed, q=37, c=300, m=8, ksub=256, dsub=16):
+    """Integer-valued queries, centroids and codes: every sum of the ADC
+    forms is an exact integer in fp32, whatever order it is summed in."""
+    rng = np.random.default_rng(seed)
+    queries = rng.integers(-3, 4, (q, m * dsub)).astype(np.float32)
+    cent = rng.integers(-3, 4, (m, ksub, dsub)).astype(np.float32)
+    codes = rng.integers(0, ksub, (c, m)).astype(np.uint8)
+    return queries, cent, codes
+
+
+@pytest.mark.parametrize("m,ksub", [(8, 256), (16, 256), (4, 64)])
+def test_adc_forms_match_jax_exactly_on_integers(m, ksub):
+    """adc_tables, adc_distances_gather, codes_to_onehot and
+    adc_distances_onehot equal the JAX package's bit for bit on integer
+    inputs."""
+    queries, cent, codes = _int_adc_inputs(m, m=m, ksub=ksub, dsub=128 // m)
+    jt = np.asarray(jpq.adc_tables(jnp.asarray(queries), jnp.asarray(cent)))
+    tt = tpq.adc_tables(queries, torch.from_numpy(cent))
+    assert tt.shape == (queries.shape[0], m, ksub) and tt.dtype == torch.float32
+    np.testing.assert_array_equal(tt.numpy(), jt)
+    jg = np.asarray(jpq.adc_distances_gather(jnp.asarray(jt), jnp.asarray(codes)))
+    tg = tpq.adc_distances_gather(tt, torch.from_numpy(codes))
+    np.testing.assert_array_equal(tg.numpy(), jg)
+    joh = np.asarray(jpq.codes_to_onehot(jnp.asarray(codes), ksub=ksub).astype(jnp.float32))
+    toh = tpq.codes_to_onehot(torch.from_numpy(codes), ksub=ksub)
+    assert toh.dtype == torch.bfloat16 and toh.shape == (codes.shape[0], m * ksub)
+    np.testing.assert_array_equal(toh.float().numpy(), joh)
+    jo = np.asarray(jpq.adc_distances_onehot(jnp.asarray(jt), jnp.asarray(joh, jnp.bfloat16)))
+    to = tpq.adc_distances_onehot(tt, toh)
+    assert to.dtype == torch.float32
+    np.testing.assert_array_equal(to.numpy(), jo)
+
+
+def test_adc_forms_match_jax_on_real_codebook():
+    """On a trained codebook and tanh-bounded queries: the tables and the
+    gather form within fp32 summation noise; the one-hot form rounds the
+    table to bf16 as the JAX package does (equal within one fp32 ulp of the
+    sum), and sits within bf16 rounding of the gather form."""
+    cb = _codebook(5, 8, 8)
+    queries = _embeddings(6, 50)
+    codes = jpq.encode_pq(_embeddings(7, 400), jpq.PQCodebook(jnp.asarray(cb)))
+    jt = np.asarray(jpq.adc_tables(jnp.asarray(queries), jnp.asarray(cb)))
+    tt = tpq.adc_tables(queries, torch.from_numpy(cb))
+    np.testing.assert_allclose(tt.numpy(), jt, rtol=1e-5, atol=1e-5)
+    jg = np.asarray(jpq.adc_distances_gather(jnp.asarray(jt), jnp.asarray(codes)))
+    tg = tpq.adc_distances_gather(torch.from_numpy(jt.copy()), torch.from_numpy(codes))
+    np.testing.assert_allclose(tg.numpy(), jg, rtol=1e-6, atol=1e-5)
+    joh = jpq.codes_to_onehot(jnp.asarray(codes))
+    jo = np.asarray(jpq.adc_distances_onehot(jnp.asarray(jt), joh))
+    to = tpq.adc_distances_onehot(torch.from_numpy(jt.copy()),
+                                  tpq.codes_to_onehot(torch.from_numpy(codes)))
+    np.testing.assert_allclose(to.numpy(), jo, rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(to.numpy(), tg.numpy(), rtol=1e-2, atol=1e-2)

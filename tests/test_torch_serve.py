@@ -142,3 +142,26 @@ def test_cli_serve_dispatch(idx, data_dir, monkeypatch, capsys):
     assert np.load(os.path.join(tmp, "indices.npy")).shape == (150, 4)
     pg = next(ln for ln in open(os.path.join(tmp, "results.sam")) if ln.startswith("@PG"))
     assert " k=4 " in pg and pg.rstrip().endswith(" mapq")
+
+
+def test_serve_search_stats_for_an_hnsw_index(tmp_path_factory, data_dir, tmp_path):
+    """serve takes an HNSWPQ index through load_index with no change of its
+    own; search_stats: true returns the beam's effort counters, and the
+    answer equals the one-shot pipeline's."""
+    prefix = str(tmp_path_factory.mktemp("srv_hnsw") / "idx")
+    build_index(str(data_dir / "ecoli_150.fna"), prefix, 150, index_type="HNSWPQ",
+                device="cpu")
+    fq = str(data_dir / "test_data.fastq")
+    n, lines = _run(prefix, data_dir, [
+        {"id": "s", "fastq": fq, "output_dir": str(tmp_path / "o"), "k": 8, "ef": 32,
+         "search_stats": True},
+        {"cmd": "quit"},
+    ])
+    assert n == 1
+    st = lines[1]["search_stats"]
+    assert st["queries"] == 150 and st["beam_expansions_per_query"] == 32
+    assert st["ntotal"] == 1702 and st["graph_degree"] == 32
+    run_pipeline(prefix, fq, str(data_dir / "ecoli_150.fna"), 32, 8, 5,
+                 str(tmp_path / "one"), write_sam=False, device="cpu")
+    np.testing.assert_array_equal(np.load(tmp_path / "o" / "indices.npy"),
+                                  np.load(tmp_path / "one" / "indices.npy"))
