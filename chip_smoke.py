@@ -69,6 +69,21 @@ Phases (any failure raises and the exit code is not 0):
               genome (199,702 windows, kNN graph on the card), recall@10;
               the build splits, search times, reads/s, effort counters and a
               profile of one search
+ 13. genome_shard the sharded index on the one card, phase 5's genome and
+              reads: (a) in one process, build-index --shards 4 -> pipeline
+              (INT8FLAT; top-1 against phase 5's, int8_winmin on every shard,
+              the steady search against phase 5's unsharded index, memory per
+              shard), FLAT over the same embeddings (--shards 4 and
+              sharded_l2_topk against the unsharded exact search), PQFLAT
+              --shards 2 -> --rerank sw, IVFINT8 and IVFPQ --shards 2 at
+              nprobe 32 (fold and packed routes), each against the unsharded
+              engine over the same codes, and HNSWPQ --shards 2 at phase 12
+              (a)'s size against its recall; (b) the CLI under torchrun
+              (build-index --distributed --shards 4, pipeline --distributed,
+              a 1-rank NCCL group) and (c) the API in two spawned ranks on
+              the one card (gloo collectives): their indices.npy,
+              distances.npy and results.sam equal (a)'s byte for byte, and
+              rank 1 writes no file
 Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
 results line), holds the four IVF chunk scans against their plain versions
 on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
@@ -149,6 +164,12 @@ HNSW_SPARSE_ARGS = (str(HNSW_EF), "10", "5")  # ef, k, k_clusters: 5 hits x 7 wi
 JAX_HNSW_RECALL10 = 0.7844  # the port on the CPU: 0.7846; the exhaustive scan of the codes: 0.7838
 JAX_HNSW_SPARSE_TOP1 = 942 / HNSW_GATE_READS  # 0.9199; a second run 940 (the native build
 # inserts in parallel above 1,024 rows); the port on the CPU: 942 in two runs
+# phase 13: the sharded index on the one card
+SHARD_N = 4                         # (a)'s INT8FLAT shards of phase 5's genome: 999,926 rows each
+SHARD_N_OTHER = 2                   # PQFLAT, IVFINT8, IVFPQ and HNSWPQ shards
+SHARD_FLAT_READS = 1024             # the exact fp32 search's reads (bounds its score tiles)
+SHARD_PACKED_READS = 2048           # the IVF packed route's batch (#5, #7): 2048 x 32 pairs
+SHARD_TIMEOUT = 300                 # seconds for each process phase 13 starts
 # bwa's tab form with literal "\t" escapes; io.sam.parse_read_group (both
 # packages) takes the fields without bwa's leading "@RG"
 SAM_RG = "ID:smoke\\tSM:s1"
@@ -1274,7 +1295,8 @@ def _ivf_routes(tag: str, engine, q: np.ndarray, packed_kernel: str, fold_kernel
 def _build_split(tag: str, config: dict, t_build: float, bt: dict) -> None:
     n = config["n_vects"]
     split = " | ".join(f"{k} {bt[k]:.2f} s" for k in
-                       ("embed", "kmeans", "assign", "split_pack", "save") if k in bt)
+                       ("embed", "kmeans", "assign", "split_pack", "graph", "pq", "save")
+                       if k in bt)
     log(f"[{tag}] build: {n} windows in {t_build:.2f} s ({n / t_build:.0f} windows/s); "
         f"{split}")
 
@@ -2451,6 +2473,7 @@ def phase_genome_hnsw():
     oracle = oracle.cpu().numpy()
     n = HNSW_GATE_READS
     recall, recall_all = _recall(ids[:n, :10], oracle[:n]), _recall(ids[:, :10], oracle)
+    recall_a = recall
     engine, _ = load_index(idx)
     adc = PQFlatIndex(engine.codes, engine.codebook, engine.ntotal, device=dev)
     a_ids, _ = adc.search(q, 64, exact=True)
@@ -2525,6 +2548,312 @@ def phase_genome_hnsw():
     shutil.rmtree(work, ignore_errors=True)
     if bad:
         raise AssertionError(f"genome_hnsw: {bad}")
+    return {"recall_a": recall_a}
+
+
+def _shard_codes(index) -> np.ndarray:
+    """The codes of a sharded IVF index back in row order, shard after
+    shard, pad rows dropped: what an unsharded build would index."""
+    parts = []
+    for sub in index.subs:
+        rows = np.zeros((sub.ntotal, sub.codes_cm.shape[1]), sub.codes_cm.dtype)
+        live = sub.row_ids >= 0
+        rows[sub.row_ids[live]] = sub.codes_cm[live]
+        parts.append(rows)
+    return np.concatenate(parts)[: index.ntotal]
+
+
+def _same_outputs(tag: str, got: str, want: str) -> None:
+    for name in ("indices.npy", "distances.npy", "results.sam"):
+        with open(os.path.join(got, name), "rb") as f, open(os.path.join(want, name), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"genome_shard {tag}: {name} differs from (a)'s")
+
+
+def _run_child(tag: str, cmd: list, env=None) -> str:
+    """One process phase 13 starts: its output, or raise (it is killed at
+    SHARD_TIMEOUT)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=SHARD_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"genome_shard {tag} failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[genome_shard {tag}] {' '.join(cmd[1:6])} ... {cmd[-1]}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return proc.stdout + proc.stderr
+
+
+_RANK_CHILD = """
+import sys
+root, port, rank, ref, fq, prefix, out, n_shards, k = sys.argv[1:10]
+sys.path.insert(0, root)
+import torch
+from deepreadmapper_tpu_torch.parallel import distributed as dist
+dev = dist.init_distributed("gloo", device="cuda:0", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=int(rank))
+import torch.distributed
+print(f"[rank {rank}] backend {torch.distributed.get_backend()} device {dev}", flush=True)
+from deepreadmapper_tpu_torch.pipeline.build import build_index_distributed
+from deepreadmapper_tpu_torch.pipeline.search import run_pipeline
+build_index_distributed(ref, prefix, 150, n_shards=int(n_shards), device=dev)
+run_pipeline(prefix, fq, ref, ef=128, k=int(k), k_clusters=5, output_dir=out + rank,
+             device=dev)
+print(f"RANK{rank}-OK", flush=True)
+"""
+
+
+def phase_genome_shard(genome: dict, hnsw: dict):
+    """The sharded index on the one card (module docstring, phase 13).  #1
+    embeds in every part; #2 runs on each INT8FLAT shard, #4 and #3 on the
+    PQFLAT shards and their rerank, #5-#8 on the IVF shards."""
+    import socket
+
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, default_device, kernels
+    from deepreadmapper_tpu_torch.config import BuildConfig
+    from deepreadmapper_tpu_torch.index.flat import FlatIndex
+    from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
+    from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
+    from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
+    from deepreadmapper_tpu_torch.index.registry import load_index
+    from deepreadmapper_tpu_torch.io import fasta as fasta_io
+    from deepreadmapper_tpu_torch.io.configstore import load_config, save_config
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.ops.topk import l2_topk
+    from deepreadmapper_tpu_torch.parallel.mesh import make_mesh
+    from deepreadmapper_tpu_torch.parallel.sharded_ann import ShardedANNIndex
+    from deepreadmapper_tpu_torch.parallel.sharded_search import sharded_l2_topk
+    from deepreadmapper_tpu_torch.pipeline.build import INT8_SCALE, embed_fasta_windows
+
+    work = os.path.join(WORK, "genome_shard")
+    os.makedirs(work, exist_ok=True)
+    ref, fq, starts, strands = genome["ref"], genome["fq"], genome["starts"], genome["strands"]
+    dev = default_device()
+    vec = Vectorizer()
+    lengths = np.full(N_READS, READ_LEN + 2)
+    q = vec.vectorize_wrapped_bytes(genome["wrapped"], lengths)
+    bad = []
+
+    def build(tag, argv):
+        t0 = time.perf_counter()
+        with _BuildTimings() as bt:
+            if cli.main(["build-index", *argv]) != 0:
+                raise AssertionError(f"genome_shard {tag} build-index failed")
+        torch.cuda.synchronize()
+        _build_split(f"genome_shard {tag}", load_config(os.path.join(argv[1], "config.txt")),
+                     time.perf_counter() - t0, bt)
+
+    def pipeline(tag, argv, need):
+        """pipeline through the CLI, the launch counts of this run alone;
+        each kernel in need must have launched."""
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        if cli.main(["pipeline", *argv]) != 0:
+            raise AssertionError(f"genome_shard {tag} pipeline failed")
+        torch.cuda.synchronize()
+        c = kernels.counts()
+        log(f"[genome_shard {tag}] pipeline {' '.join(argv[3:])}: "
+            f"{time.perf_counter() - t0:.2f} s; launches {c}")
+        if any(c[n] <= 0 for n in need):
+            bad.append(f"{tag}: launches {c}, need {need}")
+        return c
+
+    def steady(fn) -> float:
+        fn()  # warm
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        return float(np.median(reps))
+
+    # (a) INT8FLAT, 4 shards on the card, through the CLI
+    idx, out_a = os.path.join(work, "idx"), os.path.join(work, "out_a")
+    build("a INT8FLAT", [ref, idx, str(READ_LEN), "--shards", str(SHARD_N)])
+    c = pipeline("a INT8FLAT", [idx, fq, ref, "128", str(SAM_K), "5", out_a],
+                 ("gru_fwd", "int8_winmin"))
+    if c["int8_winmin"] < SHARD_N:
+        bad.append(f"(a) int8_winmin launched {c['int8_winmin']} times for {SHARD_N} shards")
+    top1 = _top1(np.load(os.path.join(out_a, "indices.npy")), starts, strands)
+    log(f"[genome_shard a] INT8FLAT {SHARD_N} shards: top-1 {top1:.4f} (need >= phase 5's "
+        f"{genome['top1']:.4f} - 0.01)")
+    if top1 < genome["top1"] - 0.01:
+        bad.append(f"(a) INT8FLAT top-1 {top1}")
+    sharded, _ = load_index(idx)
+    one, _ = load_index(genome["idx"])
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t_sh = steady(lambda: sharded.search(q, 128))
+    resident = torch.cuda.memory_allocated() - m0
+    torch.cuda.reset_peak_memory_stats()
+    sharded.search(q, 128)
+    torch.cuda.synchronize()
+    work_peak = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    t_one = steady(lambda: one.search(q, 128))
+    log(f"[genome_shard a] steady search of {N_READS} reads (k 128, median of 3): "
+        f"{SHARD_N} shards {t_sh:.4f} s against the unsharded index's {t_one:.4f} s; "
+        f"resident {resident / SHARD_N / 1e9:.3f} GB a shard, search workspace above the "
+        f"resident shards {work_peak / 1e9:.3f} GB (one shard at a time)")
+    _profile("genome_shard a", "search", lambda: sharded.search(q, 128), 1, _SEARCH_GROUPS)
+    del sharded, one
+
+    # FLAT over the same embeddings: the sharded engine and sharded_l2_topk
+    # against the unsharded exact search
+    emb = embed_fasta_windows(fasta_io.parse_fasta_records(ref), READ_LEN, 1, vec)
+    qf = q[:SHARD_FLAT_READS]
+    flat = FlatIndex(emb, dev)
+    i1, d1 = flat.search(qf, 16)
+    fsh = ShardedANNIndex.build(emb, make_mesh(n_shard=SHARD_N, devices=[dev]),
+                                index_type="FLAT")
+    i2, d2 = fsh.search(qf, 16)
+    n_div = emb.shape[0] - emb.shape[0] % SHARD_N
+    refs = flat._dev[:n_div]
+    d3, i3 = sharded_l2_topk(qf, refs, 16, make_mesh(n_shard=SHARD_N, devices=[dev]))
+    d4, i4 = l2_topk(qf, refs, 16, device=dev)
+    same = (np.array_equal(i2, i1) and np.array_equal(i3.numpy(), i4.cpu().numpy()))
+    dmax = max(float(np.max(np.abs(d2 - d1) / np.maximum(1.0, np.abs(d1)))),
+               float(torch.max(torch.abs(d3 - d4.cpu()) / torch.clamp(d4.cpu().abs(), min=1))))
+    log(f"[genome_shard a] FLAT {SHARD_N} shards, {SHARD_FLAT_READS} reads, k 16: ids equal "
+        f"the unsharded search's {same} (ShardedANNIndex and sharded_l2_topk), distances "
+        f"within {dmax:.2e} relative (need <= 1e-4)")
+    if not same or dmax > 1e-4:
+        bad.append(f"(a) FLAT ids equal {same}, distances {dmax}")
+    del flat, fsh, refs, emb
+
+    # PQFLAT, 2 shards (one codebook), then the SW rerank; against the
+    # unsharded engine over the same codes
+    pq, pq1 = os.path.join(work, "pq"), os.path.join(work, "pq1")
+    build("a PQFLAT", [ref, pq, str(READ_LEN), "--index-type", "PQFLAT",
+                       "--shards", str(SHARD_N_OTHER)])
+    pipe = ["128", "10", "128"]
+    pipeline("a PQFLAT", [pq, fq, ref, *pipe, os.path.join(work, "pq_out"), "--rerank", "sw"],
+             ("gru_fwd", "pq_winmin", "sw_score"))
+    shpq, cfg = load_index(pq)
+    s0 = shpq.subs[0]
+    codes = np.concatenate([s.codes for s in shpq.subs])[: shpq.ntotal]
+    PQFlatIndex(codes, s0.codebook, shpq.ntotal, s0.rot, dev).save(pq1)
+    save_config(cfg, pq1)
+    pipeline("a PQFLAT unsharded", [pq1, fq, ref, *pipe, os.path.join(work, "pq1_out"),
+                                    "--rerank", "sw"], ("pq_winmin", "sw_score"))
+    sw_sh = sw_top1(os.path.join(work, "pq_out", "results.sam"), starts, strands)
+    sw_one = sw_top1(os.path.join(work, "pq1_out", "results.sam"), starts, strands)
+    log(f"[genome_shard a] PQFLAT {SHARD_N_OTHER} shards -> --rerank sw: SW top-1 {sw_sh:.4f} "
+        f"(need >= the unsharded engine's {sw_one:.4f} - 0.01)")
+    if sw_sh < sw_one - 0.01:
+        bad.append(f"(a) PQFLAT SW top-1 {sw_sh} against {sw_one}")
+    del shpq
+
+    # IVFINT8 and IVFPQ, 2 shards at nprobe 32: 8192 reads (fold) through
+    # the CLI, 2048 in process (packed); against the unsharded engines
+    for kind, fold_k, packed_k in (("IVFINT8", "ivf_chunk_int8_fold", "ivf_chunk_int8"),
+                                   ("IVFPQ", "ivf_chunk_pq_fold", "ivf_chunk_pq")):
+        tag = f"a {kind}"
+        pk, out_k = os.path.join(work, kind.lower()), os.path.join(work, kind.lower() + "_out")
+        build(tag, [ref, pk, str(READ_LEN), "--index-type", kind, "--shards", str(SHARD_N_OTHER)])
+        pipeline(tag, [pk, fq, ref, str(IVF_NPROBE), "10", "10", out_k, "--no-sam"],
+                 ("gru_fwd", fold_k))
+        top_sh = _top1(np.load(os.path.join(out_k, "indices.npy")), starts, strands)
+        shx, _ = load_index(pk)
+        kernels.reset_counts()
+        ids_p, _ = shx.search(q[:SHARD_PACKED_READS], 10, ef=IVF_NPROBE)
+        torch.cuda.synchronize()
+        c = kernels.counts()
+        if c[packed_k] <= 0:
+            bad.append(f"{tag} packed route: launches {c}")
+        s0 = shx.subs[0]
+        t0 = time.perf_counter()
+        if kind == "IVFINT8":
+            base = IVFInt8Index.build_from_codes(_shard_codes(shx), INT8_SCALE, BuildConfig(),
+                                                 device=dev)
+        else:
+            base = IVFPQIndex.build_from_codes(_shard_codes(shx), s0.codebook, BuildConfig(),
+                                               rot=s0.rot, device=dev)
+        t_base = time.perf_counter() - t0
+        ids1, _ = base.search(q, 10, ef=IVF_NPROBE)
+        ids1_p, _ = base.search(q[:SHARD_PACKED_READS], 10, ef=IVF_NPROBE)
+        top_one = _top1(ids1, starts, strands)
+        n_p = SHARD_PACKED_READS
+        log(f"[genome_shard {tag}] {SHARD_N_OTHER} shards ({[s.nlist for s in shx.subs]} "
+            f"clusters) at nprobe {IVF_NPROBE}: top-1 {top_sh:.4f} on {N_READS} reads (fold; "
+            f"need >= the unsharded engine's {top_one:.4f} - 0.02; its build from the same "
+            f"codes {t_base:.2f} s, {base.nlist} clusters); {n_p} reads (packed, launches {c}) "
+            f"{_top1(ids_p, starts[:n_p], strands[:n_p]):.4f} against "
+            f"{_top1(ids1_p, starts[:n_p], strands[:n_p]):.4f}")
+        if top_sh < top_one - 0.02:
+            bad.append(f"{tag} top-1 {top_sh} against {top_one}")
+        del shx, base
+
+    # HNSWPQ, 2 shards, at phase 12 (a)'s size and parameters
+    hw = os.path.join(work, "hnsw")
+    os.makedirs(hw, exist_ok=True)
+    href, hfq, _hs, _hd, hmat, _ = simulate(hw, HNSW_GENOME_BP, N_READS)
+    hidx, hout = os.path.join(hw, "idx"), os.path.join(hw, "out")
+    build("a HNSWPQ", [href, hidx, str(READ_LEN), "--index-type", "HNSWPQ",
+                       "--shards", str(SHARD_N_OTHER)])
+    pipeline("a HNSWPQ", [hidx, hfq, href, str(HNSW_EF), "128", "128", hout, "--no-sam"],
+             ("gru_fwd",))
+    hq = vec.vectorize_wrapped_bytes(hmat, lengths)
+    windows = embed_fasta_windows(fasta_io.parse_fasta_records(href), READ_LEN, 1, vec)
+    _, oracle = l2_topk(hq, windows, 10, device=dev)
+    n = HNSW_GATE_READS
+    recall = _recall(np.load(os.path.join(hout, "indices.npy"))[:n, :10].astype(np.int64),
+                     oracle.cpu().numpy()[:n])
+    log(f"[genome_shard a] HNSWPQ {SHARD_N_OTHER} shards: recall@10 on the first {n} reads "
+        f"{recall:.4f} (need >= phase 12 (a)'s unsharded {hnsw['recall_a']:.4f} - 0.02)")
+    if recall < hnsw["recall_a"] - 0.02:
+        bad.append(f"(a) HNSWPQ recall@10 {recall}")
+
+    # (b) the CLI under torchrun, a 1-rank NCCL group: the same index path,
+    # so the SAM's @PG line matches (a)'s
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "deepreadmapper_tpu_torch.cli"]
+    shutil.rmtree(idx)
+    out_b = os.path.join(work, "out_b")
+    said = _run_child("b torchrun", run + ["build-index", ref, idx, str(READ_LEN),
+                                           "--distributed", "--shards", str(SHARD_N)])
+    said += _run_child("b torchrun", run + ["pipeline", idx, fq, ref, "128", str(SAM_K), "5",
+                                            out_b, "--distributed"])
+    backends = sorted({ln for ln in said.splitlines() if "[DIST]" in ln})
+    log(f"[genome_shard b] {backends}")
+    _same_outputs("(b) torchrun", out_b, out_a)
+    log("[genome_shard b] indices.npy, distances.npy, results.sam equal (a)'s byte for byte")
+
+    # (c) two ranks on the one card through the API, gloo collectives
+    shutil.rmtree(idx)
+    out_c = os.path.join(work, "out_c")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = str(sock.getsockname()[1])
+    sock.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_CHILD, ROOT, port, str(r), ref, fq,
+                               idx, out_c, str(SHARD_N), str(SAM_K)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        for r, proc in enumerate(procs):
+            text, _ = proc.communicate(timeout=SHARD_TIMEOUT)
+            if proc.returncode != 0 or f"RANK{r}-OK" not in text:
+                raise AssertionError(f"genome_shard (c) rank {r} failed:\n{text[-3000:]}")
+            log(f"[genome_shard c] {[ln for ln in text.splitlines() if '[rank' in ln]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[genome_shard c] two ranks on {torch.cuda.get_device_name(0)}: build + pipeline "
+        f"{time.perf_counter() - t0:.2f} s")
+    _same_outputs("(c) two ranks", out_c + "0", out_a)
+    if os.listdir(out_c + "1"):
+        bad.append(f"(c) rank 1 wrote {os.listdir(out_c + '1')}")
+    log("[genome_shard c] rank 0's outputs equal (a)'s byte for byte; rank 1 wrote no file")
+    shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"genome_shard: {bad}")
 
 
 def main() -> int:
@@ -2567,8 +2896,12 @@ def main() -> int:
         f"{time.perf_counter() - t11 - t_pe:.1f} s) in {time.perf_counter() - t11:.1f} s; "
         f"phases 1-11 in {time.perf_counter() - t0:.1f} s")
     t12 = time.perf_counter()
-    phase_genome_hnsw()
+    hnsw = phase_genome_hnsw()
     log(f"[time] phase 12 (genome_hnsw) in {time.perf_counter() - t12:.1f} s; phases 1-12 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t13 = time.perf_counter()
+    phase_genome_shard(genome, hnsw)
+    log(f"[time] phase 13 (genome_shard) in {time.perf_counter() - t13:.1f} s; phases 1-13 in "
         f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:

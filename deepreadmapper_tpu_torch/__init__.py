@@ -17,7 +17,9 @@ Layer map:
   models/            bi-GRU encoder (``gru`` wraps the GRU CUDA kernel)
   ops/               exact L2 top-k, the int8/PQ window-min scans, PQ, SW,
                      the IVF chunk scans
-  index/             FLAT, INT8FLAT, PQFLAT, IVFINT8, IVFPQ; the registry
+  index/             FLAT, INT8FLAT, PQFLAT, IVFINT8, IVFPQ, HNSWPQ, HNSWFLAT;
+                     the registry
+  parallel/          the sharded index, its device grid, torch.distributed
   pipeline/          build-index and the search pipeline (L2 and SW paths)
   kernels            nvcc + ctypes build/load of ``csrc/*.cu``, launch counts
 
@@ -51,11 +53,3 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     """An explicit device as given, else the default (the card)."""
     return torch.device(device) if device is not None else default_device()
 
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a feature of the JAX package the port does not have yet."""
-    return NotImplementedError(
-        f"{what} is not ported to deepreadmapper_tpu_torch yet; see "
-        "ROADMAP.md (Queue A) for the order of the remaining work, or use "
-        "deepreadmapper_tpu"
-    )

@@ -4,9 +4,10 @@ positional arguments of ``deepreadmapper_tpu/cli.py``:
   pipeline     <index_prefix> <query> <ref> [ef k k_clusters output_dir
                use_dynamic use_streaming] [--cigar --mapq ... --profile DIR]
                [--paired2 R2 | --paired-interleaved] [--long-reads]
+               [--distributed]
   build-index  <ref> <index_prefix> <ref_len> [stride M_pq nbits M_hnsw EFC]
                [--index-type T --build-mode insert|knn --level-mode rng|centroid
-                --weights tuned.npz --resume]
+                --weights tuned.npz --resume --shards N --distributed]
   serve        <index_prefix> <ref> (JSONL requests on stdin)
   inference    <seqs> <ref_len> [out.npy] [batch]
   finetune     <ref> <ref_len> [-o tuned.npz --steps --batch --lr ...]
@@ -17,9 +18,12 @@ positional arguments of ``deepreadmapper_tpu/cli.py``:
 The commands that compute run on the CUDA device; ``--device cpu`` runs
 them on the CPU, and without a card and without that flag they exit with
 status 2 before reading or writing anything.  info, plan and gen-ref touch
-no device.  Flags of the JAX CLI that the port does not have yet are
-accepted and raise NotImplementedError, so a command line written for
-either package gives a clear answer.
+no device.  ``--distributed`` joins the process group torchrun starts
+(``torchrun --nproc-per-node N -m deepreadmapper_tpu_torch.cli ...``):
+each rank works on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo
+with ``--device cpu``; build-index then embeds and saves only each rank's
+shards, and pipeline loads only each rank's shards and writes its outputs
+on rank 0.
 """
 
 from __future__ import annotations
@@ -28,12 +32,8 @@ import argparse
 import os
 import sys
 
-from deepreadmapper_tpu_torch import not_ported, resolve_device
+from deepreadmapper_tpu_torch import resolve_device
 
-# Flags of the JAX CLI whose features are not ported yet (ROADMAP.md).
-_PIPELINE_UNPORTED = ("--distributed",)
-_BUILD_UNPORTED = ("--distributed",)
-_BUILD_UNPORTED_VALUED = ("--shards",)
 # plan's card memory without a visible card: the H100's 80 GB
 _DEFAULT_HBM_GB = 80.0
 # Device memory an INT8FLAT search needs beside its resident index: an
@@ -49,6 +49,13 @@ def _add_device(p):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the port runs (default: the CUDA device; "
                         "without one the command fails unless --device cpu)")
+
+
+def _add_distributed(p, what: str):
+    p.add_argument("--distributed", action="store_true",
+                   help=f"multi-process run under torchrun: {what}; run the "
+                        "same command on every rank (NCCL on the cards, gloo "
+                        "with --device cpu)")
 
 
 def _add_pipeline(sub):
@@ -118,8 +125,8 @@ def _add_pipeline(sub):
                         "expected mate interval next to an anchored end "
                         "when no proper pair exists)")
     _add_device(p)
-    for flag in _PIPELINE_UNPORTED:
-        p.add_argument(flag, action="store_true", help="not ported yet")
+    _add_distributed(p, "each rank loads ONLY its index shards, the search "
+                        "merges across the ranks, rank 0 writes the outputs")
 
 
 def _add_build(sub):
@@ -160,11 +167,12 @@ def _add_build(sub):
                         "checkpoint to <prefix>/.build_cache/ and a rerun "
                         "skips what is already embedded (INT8FLAT, IVFINT8, "
                         "PQFLAT, IVFPQ from FASTA)")
+    p.add_argument("--shards", type=int, default=1,
+                   help="shard the index over N sub-indexes (shard_i/ + "
+                        "sharded.txt), for one card or several")
     _add_device(p)
-    for flag in _BUILD_UNPORTED:
-        p.add_argument(flag, action="store_true", help="not ported yet")
-    for flag in _BUILD_UNPORTED_VALUED:
-        p.add_argument(flag, default=None, help="not ported yet")
+    _add_distributed(p, "every rank embeds and saves ONLY its own shards "
+                        "(its genome slice)")
 
 
 def _add_finetune(sub):
@@ -261,17 +269,29 @@ def _add_gen_ref(sub):
                    help="no <...> wrapping (lookup mode)")
 
 
-def _refuse_unported(args, flags) -> None:
-    for flag in flags:
-        if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None, False):
-            raise not_ported(flag)
+def _init_distributed(device):
+    """--distributed: join torchrun's process group, over NCCL on the card
+    (cuda:LOCAL_RANK) or gloo with --device cpu; returns the device this
+    rank computes on."""
+    from deepreadmapper_tpu_torch.parallel.distributed import (
+        init_distributed,
+        rank,
+        world_size,
+    )
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    device = init_distributed(backend, device=None if device.type == "cuda" else device)
+    print(f"[DIST] rank {rank()} of {world_size()}, backend {backend}, device {device}")
+    return device
 
 
 def _split_interleaved(path: str, output_dir: str):
     """Split an interleaved FASTQ (R1, R2, R1, ...) into
     <output_dir>/_interleaved_R1.fastq and _R2.fastq, kept beside the
-    outputs; returns the two paths, or None for an odd record count."""
+    outputs; returns the two paths, or None for an odd record count.  Under
+    a process group rank 0 writes them and the others wait for it."""
     from deepreadmapper_tpu_torch.io.fileio import read_bytes
+    from deepreadmapper_tpu_torch.parallel.distributed import barrier, is_main
 
     data = read_bytes(path).split(b"\n")
     recs = [data[i: i + 4] for i in range(0, len(data) - 3, 4)]
@@ -280,9 +300,11 @@ def _split_interleaved(path: str, output_dir: str):
     os.makedirs(output_dir, exist_ok=True)
     p1 = os.path.join(output_dir, "_interleaved_R1.fastq")
     p2 = os.path.join(output_dir, "_interleaved_R2.fastq")
-    with open(p1, "wb") as f1, open(p2, "wb") as f2:
-        for j, rec in enumerate(recs):
-            (f1 if j % 2 == 0 else f2).write(b"\n".join(rec) + b"\n")
+    if is_main():
+        with open(p1, "wb") as f1, open(p2, "wb") as f2:
+            for j, rec in enumerate(recs):
+                (f1 if j % 2 == 0 else f2).write(b"\n".join(rec) + b"\n")
+    barrier()
     return p1, p2
 
 
@@ -451,7 +473,8 @@ def main(argv=None) -> int:
         return 2
 
     if args.cmd == "pipeline":
-        _refuse_unported(args, _PIPELINE_UNPORTED)
+        if args.distributed:
+            device = _init_distributed(device)
         from deepreadmapper_tpu_torch.pipeline.search import (
             run_pipeline,
             run_pipeline_paired,
@@ -503,9 +526,11 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "build-index":
-        _refuse_unported(args, _BUILD_UNPORTED + _BUILD_UNPORTED_VALUED)
         from deepreadmapper_tpu_torch.config import BuildConfig
-        from deepreadmapper_tpu_torch.pipeline.build import build_index
+        from deepreadmapper_tpu_torch.pipeline.build import (
+            build_index,
+            build_index_distributed,
+        )
 
         cfg = BuildConfig(
             stride=args.stride,
@@ -518,17 +543,32 @@ def main(argv=None) -> int:
             nlist=args.nlist,
             level_mode=args.level_mode,
         )
-        config = build_index(
-            args.ref_file,
-            args.index_prefix,
-            args.ref_len,
-            stride=args.stride,
-            index_type=args.index_type,
-            build_cfg=cfg,
-            device=device,
-            weights=args.weights,
-            resume=args.resume,
-        )
+        if args.distributed:
+            device = _init_distributed(device)
+            config = build_index_distributed(
+                args.ref_file,
+                args.index_prefix,
+                args.ref_len,
+                stride=args.stride,
+                index_type=args.index_type,
+                build_cfg=cfg,
+                n_shards=args.shards,
+                weights=args.weights,
+                device=device,
+            )
+        else:
+            config = build_index(
+                args.ref_file,
+                args.index_prefix,
+                args.ref_len,
+                stride=args.stride,
+                index_type=args.index_type,
+                build_cfg=cfg,
+                device=device,
+                weights=args.weights,
+                resume=args.resume,
+                n_shards=args.shards,
+            )
         print(f"[BUILD INDEX] saved {config['n_vects']} vectors to "
               f"{args.index_prefix}")
         return 0

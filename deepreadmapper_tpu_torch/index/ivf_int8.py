@@ -638,25 +638,52 @@ class IVFInt8Index:
         (probe, plan, kernel, merge, download; device-synchronised) and the
         plan's step and visit counts."""
         del approx_probe
-        import time
-
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
         if self.ntotal == 0 or nq == 0:
             return np.full((nq, k), -1, np.int64), np.full((nq, k), np.inf, np.float32)
         nprobe = int(np.clip(ef if ef else 32, 1, self.nlist))
         k_eff = min(k, self.ntotal)
-        kp = min(k_eff, self.cap) if exact else ik.KP
-        k_scan = min(k_eff, nprobe * kp)
-        store, rn, _cent, _cn, slab_dev, nch_dev, cbase_dev = self._device()
+        k_scan = min(k_eff, nprobe * (min(k_eff, self.cap) if exact else ik.KP))
         sq, ratio = query_scale_ratio(queries, self.scale)
-        ratio2 = 2.0 * float(np.float32(ratio))
         q8_all = quantize_host(queries, sq)
-        qn_all = (q8_all.astype(np.int64) ** 2).sum(1).astype(np.float32)
-        s2 = np.float32(self.scale) ** 2
-        r2 = np.float32(ratio) ** 2
         out_d = np.empty((nq, k_scan), np.float32)
         out_i = np.empty((nq, k_scan), np.int64)
+        for s in range(0, nq, self._Q_BATCH):
+            e = min(s + self._Q_BATCH, nq)
+            if exact:
+                route = "exact"
+            elif stats is None and (e - s) * nprobe <= self._FUSED_MAX_PAIRS:
+                route = "fused"  # serve-size batch: the plan is built on the device
+            else:
+                route = "fold" if self._use_fold(e - s, k_scan) else "packed"
+            out_i[s:e], out_d[s:e] = self.search_batch(q8_all[s:e], ratio, nprobe,
+                                                       k_scan, route, stats, timings)
+        if k_scan < k:
+            out_d = np.pad(out_d, ((0, 0), (0, k - k_scan)), constant_values=np.inf)
+            out_i = np.pad(out_i, ((0, 0), (0, k - k_scan)), constant_values=-1)
+        if stats is not None and stats.get("queries"):
+            stats["probed_rows_per_query"] = round(stats["probed_rows"] / stats["queries"], 1)
+            stats["coverage"] = round(stats["probed_rows_per_query"] / max(self.ntotal, 1), 6)
+            stats["centroid_evals_per_query"] = self.nlist
+        return out_i, out_d
+
+    def search_batch(self, q8_np: np.ndarray, ratio, nprobe: int, k: int, route: str,
+                     stats: dict | None = None, timings: dict | None = None):
+        """One batch of queries already quantized at scale sq (ratio = sq /
+        the code scale) -> (row ids [q, k] int64, -1 where invalid; fp32
+        squared-L2 estimates [q, k], inf there).  route: "fused" (device
+        plan, packed merge), "packed" or "fold" (host plan), or "exact".
+        nprobe may exceed this index's nlist (a sharded search probes the
+        largest shard's count everywhere): the probe then takes every
+        cluster, and the extra columns repeat the last one, which the
+        plan's duplicate rule sends to the empty slab -- the JAX package's
+        clip of its padded probe."""
+        import time
+
+        store, rn, _cent, _cn, slab_dev, nch_dev, cbase_dev = self._device()
+        kp = min(k, self.cap) if route == "exact" else ik.KP
+        ratio2 = 2.0 * float(np.float32(ratio))
         tm = timings
 
         def lap(name, t0):
@@ -668,66 +695,61 @@ class IVFInt8Index:
             tm[name] = tm.get(name, 0.0) + (t1 - t0)
             return t1
 
-        for s in range(0, nq, self._Q_BATCH):
-            e = min(s + self._Q_BATCH, nq)
-            t0 = time.perf_counter()
-            q8 = torch.from_numpy(q8_all[s:e]).to(self.device)
-            q8_pad = torch.cat([q8, torch.zeros((1, q8.shape[1]), dtype=torch.int8,
-                                                device=self.device)])
-            probe = self._probe(q8, nprobe, ratio)
-            t0 = lap("probe", t0)
-            if exact:
-                plan = self._host_plan(probe, nprobe, stats)
-                t0 = lap("plan", t0)
-                d_b, i_b = self._exact_scan(q8_pad, plan, nprobe, kp, k_scan, ratio2)
+        nq = q8_np.shape[0]
+        t0 = time.perf_counter()
+        q8 = torch.from_numpy(np.ascontiguousarray(q8_np)).to(self.device)
+        q8_pad = torch.cat([q8, torch.zeros((1, q8.shape[1]), dtype=torch.int8,
+                                            device=self.device)])
+        probe = self._probe(q8, min(nprobe, self.nlist), ratio)
+        if nprobe > self.nlist:
+            probe = torch.cat([probe, torch.full((nq, nprobe - self.nlist), self.nlist - 1,
+                                                 dtype=probe.dtype, device=probe.device)], 1)
+        t0 = lap("probe", t0)
+        if route == "exact":
+            plan = self._host_plan(probe, nprobe, stats)
+            t0 = lap("plan", t0)
+            d_b, i_b = self._exact_scan(q8_pad, plan, nprobe, kp, k, ratio2)
+            t0 = lap("kernel", t0)
+        elif route == "fused":
+            plan = drop_pad_steps(device_plan_chunked(
+                slab_dev[probe], ik.QTK, self.n_slabs, nch_dev, cbase_dev,
+                self._worst_chunks(nq, nprobe)))
+            t0 = lap("plan", t0)
+            step_chunk, step_visit, qidx, slot_of = plan
+            packed = self._kernel_scan(step_chunk, step_visit, q8_pad[qidx.long()], store,
+                                       rn, ratio2)
+            t0 = lap("kernel", t0)
+            d_b, i_b = ik.merge_packed(packed, slot_of, nprobe, k)
+            t0 = lap("merge", t0)
+        else:
+            plan = self._host_plan(probe, nprobe, stats)
+            t0 = lap("plan", t0)
+            step_chunk, step_visit, qidx, slot_of = plan
+            qsteps = q8_pad[qidx.long()]
+            if route == "fold":
+                facc = self._kernel_scan_fold(step_chunk, step_visit, qidx, qsteps, nq,
+                                              store, rn, ratio2)
                 t0 = lap("kernel", t0)
-            elif stats is None and (e - s) * nprobe <= self._FUSED_MAX_PAIRS:
-                # serve-size batch: the plan is built on the device, no
-                # probe download, no plan upload
-                plan = drop_pad_steps(device_plan_chunked(
-                    slab_dev[probe], ik.QTK, self.n_slabs, nch_dev, cbase_dev,
-                    self._worst_chunks(e - s, nprobe)))
-                t0 = lap("plan", t0)
-                step_chunk, step_visit, qidx, slot_of = plan
-                packed = self._kernel_scan(step_chunk, step_visit,
-                                           q8_pad[qidx.long()], store, rn, ratio2)
-                t0 = lap("kernel", t0)
-                d_b, i_b = ik.merge_packed(packed, slot_of, nprobe, k_scan)
-                t0 = lap("merge", t0)
+                d_b, i_b = ik.merge_fold(facc, nq, k)
             else:
-                plan = self._host_plan(probe, nprobe, stats)
-                t0 = lap("plan", t0)
-                step_chunk, step_visit, qidx, slot_of = plan
-                qsteps = q8_pad[qidx.long()]
-                if self._use_fold(e - s, k_scan):
-                    facc = self._kernel_scan_fold(step_chunk, step_visit, qidx, qsteps,
-                                                  e - s, store, rn, ratio2)
-                    t0 = lap("kernel", t0)
-                    d_b, i_b = ik.merge_fold(facc, e - s, k_scan)
-                else:
-                    packed = self._kernel_scan(step_chunk, step_visit, qsteps, store,
-                                               rn, ratio2)
-                    t0 = lap("kernel", t0)
-                    d_b, i_b = ik.merge_packed(packed, slot_of, nprobe, k_scan)
-                t0 = lap("merge", t0)
-            d_b = d_b.cpu().numpy()
-            i_b = i_b.to(torch.int64).cpu().numpy()
-            lap("download", t0)
-            if tm is not None:
-                self._count_plan(plan, tm)
-            # chunk-space rows -> original row ids; unset slots (_BIG) and
-            # empty rows are invalid
-            valid = (i_b >= 0) & (d_b < _BIGF / 2)
-            out_i[s:e] = np.where(valid, self._rowmap[np.maximum(i_b, 0)], -1)
-            out_d[s:e] = np.where(valid, (d_b + r2 * qn_all[s:e, None]) * s2, np.inf)
-        if k_scan < k:
-            out_d = np.pad(out_d, ((0, 0), (0, k - k_scan)), constant_values=np.inf)
-            out_i = np.pad(out_i, ((0, 0), (0, k - k_scan)), constant_values=-1)
-        if stats is not None and stats.get("queries"):
-            stats["probed_rows_per_query"] = round(stats["probed_rows"] / stats["queries"], 1)
-            stats["coverage"] = round(stats["probed_rows_per_query"] / max(self.ntotal, 1), 6)
-            stats["centroid_evals_per_query"] = self.nlist
-        return out_i, out_d
+                packed = self._kernel_scan(step_chunk, step_visit, qsteps, store, rn,
+                                           ratio2)
+                t0 = lap("kernel", t0)
+                d_b, i_b = ik.merge_packed(packed, slot_of, nprobe, k)
+            t0 = lap("merge", t0)
+        d_b = d_b.cpu().numpy()
+        i_b = i_b.to(torch.int64).cpu().numpy()
+        lap("download", t0)
+        if tm is not None:
+            self._count_plan(plan, tm)
+        # chunk-space rows -> original row ids; unset slots (_BIG) and
+        # empty rows are invalid; quantized scores -> fp32 squared L2
+        valid = (i_b >= 0) & (d_b < _BIGF / 2)
+        qn = (q8_np.astype(np.int64) ** 2).sum(1).astype(np.float32)
+        s2 = np.float32(self.scale) ** 2
+        r2 = np.float32(ratio) ** 2
+        return (np.where(valid, self._rowmap[np.maximum(i_b, 0)], -1),
+                np.where(valid, (d_b + r2 * qn[:, None]) * s2, np.inf).astype(np.float32))
 
     # -------------------------------------------------------- persistence
 

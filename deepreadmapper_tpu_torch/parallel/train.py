@@ -9,7 +9,7 @@ run the CUDA kernels on a GPU (``models.gru``).
 
 One device.  The JAX package shards the batch over its whole mesh (pure
 data parallelism with replicated params); the port's multi-card data
-parallelism comes with ``torch.distributed`` (ROADMAP Queue A #13).
+parallelism with ``torch.distributed`` waits as ROADMAP Queue A #14.
 """
 
 from __future__ import annotations

@@ -29,18 +29,21 @@ from deepreadmapper_tpu_torch.io.readers import FASTA_EXTS, FASTQ_EXTS, read_txt
 from deepreadmapper_tpu_torch.io.results import load_embeddings_npy
 from deepreadmapper_tpu_torch.utils.memory import estimate_index_memory, estimate_window_count
 from deepreadmapper_tpu_torch.utils.progress import Progress
-from deepreadmapper_tpu_torch import not_ported, resolve_device
+from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.index.flat import FlatIndex
 from deepreadmapper_tpu_torch.index.hnsw import HNSWFlatIndex, HNSWPQIndex
 from deepreadmapper_tpu_torch.index.int8_flat import Int8FlatIndex, quantize
 from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
 from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
+from deepreadmapper_tpu_torch.index.registry import engine_class
 from deepreadmapper_tpu_torch.models.encoder import OUT_SIZE, Vectorizer, load_params, named_leaves
 from deepreadmapper_tpu_torch.ops import pq as pq_ops
+from deepreadmapper_tpu_torch.parallel import distributed as dist_
+from deepreadmapper_tpu_torch.parallel.mesh import make_mesh
+from deepreadmapper_tpu_torch.parallel.sharded_ann import ShardedANNIndex, split_shard_rows
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 
-PORTED_ENGINES = ("INT8FLAT", "FLAT", "PQFLAT", "IVFINT8", "IVFPQ", "HNSWPQ", "HNSWFLAT")
 _PQ_ENGINES = ("PQFLAT", "IVFPQ")
 _INT8_ENGINES = ("INT8FLAT", "IVFINT8")
 _HNSW_ENGINES = ("HNSWPQ", "HNSWFLAT")
@@ -337,6 +340,23 @@ def _pq_stream_encode(records, ref_len: int, stride: int, cfg: BuildConfig,
     return codes, cb, rot
 
 
+def _sharded_or_one(rows: np.ndarray, n_shards: int, index_type: str, device,
+                    timings: dict, make_sub):
+    """make_sub(rows, timings) over all the rows, or with n_shards > 1 over
+    each shard's rows (split_shard_rows) into a ShardedANNIndex; the
+    shards' build timings add up."""
+    if n_shards <= 1:
+        return make_sub(rows, timings)
+    subs = []
+    for part in split_shard_rows(rows, n_shards):
+        tm = {}
+        subs.append(make_sub(part, tm))
+        for key, val in tm.items():
+            timings[key] = timings.get(key, 0.0) + val
+    return ShardedANNIndex(subs, make_mesh(n_shard=n_shards, devices=[device]),
+                           rows.shape[0], index_type)
+
+
 def build_index(
     ref_file: str,
     index_prefix: str,
@@ -349,6 +369,7 @@ def build_index(
     weights: str | None = None,
     vectorizer: Vectorizer | None = None,
     resume: bool = False,
+    n_shards: int = 1,
 ) -> dict:
     """Build + persist an index directory; returns the saved config.
     device defaults to the CUDA device (raises without one).  timings, when
@@ -364,9 +385,15 @@ def build_index(
     weights= when both are given).  resume=True makes the streaming builds
     from FASTA (INT8FLAT, IVFINT8, PQFLAT, IVFPQ) crash-resumable: the code
     chunks append to ``<prefix>/.build_cache/`` as they leave the device,
-    and a rerun with the same arguments skips what is already there."""
-    if index_type not in PORTED_ENGINES:
-        raise not_ported(f"index type {index_type}")
+    and a rerun with the same arguments skips what is already there.
+    n_shards > 1 writes a sharded index (``parallel/sharded_ann.py``:
+    ``shard_i/`` directories + ``sharded.txt``) with the JAX package's
+    conventions: the rows pad by repeating the last one to a shard
+    multiple; streamed INT8FLAT / IVFINT8 shards share the fixed int8
+    scale, streamed PQFLAT / IVFPQ shards one PQ codebook (and OPQ
+    rotation), IVF shards have their own coarse quantizers, and shards of
+    embeddings (FLAT, HNSW, non-FASTA inputs) are built apart."""
+    engine_class(index_type)  # an unknown index type raises here, before any work
     device = resolve_device(device)
     t = timings if timings is not None else {}
     cfg = build_cfg or BuildConfig(stride=stride)
@@ -420,10 +447,14 @@ def build_index(
         if codes.shape[0] == 0:
             raise ValueError(f"No sequences found in file: {ref_file}")
         if index_type == "IVFPQ":
-            engine = IVFPQIndex.build_from_codes(codes, cb, cfg, rot=rot, device=device,
-                                                 timings=t)
+            engine = _sharded_or_one(
+                codes, n_shards, "IVFPQ", device, t,
+                lambda c, tm: IVFPQIndex.build_from_codes(c, cb, cfg, rot=rot,
+                                                          device=device, timings=tm))
         else:
-            engine = PQFlatIndex(codes, cb, codes.shape[0], rot, device)
+            engine = _sharded_or_one(
+                codes, n_shards, "PQFLAT", device, t,
+                lambda c, tm: PQFlatIndex(c, cb, c.shape[0], rot, device))
         n_vects, dim = codes.shape[0], OUT_SIZE  # codes, not embeddings
     elif index_type in _INT8_ENGINES and ext in FASTA_EXTS:
         # Quantize every embedding chunk on the device before collection:
@@ -445,17 +476,25 @@ def build_index(
         if codes.shape[0] == 0:
             raise ValueError(f"No sequences found in file: {ref_file}")
         if index_type == "IVFINT8":
-            engine = IVFInt8Index.build_from_codes(codes, INT8_SCALE, cfg, device=device,
-                                                   timings=t)
+            engine = _sharded_or_one(
+                codes, n_shards, "IVFINT8", device, t,
+                lambda c, tm: IVFInt8Index.build_from_codes(c, INT8_SCALE, cfg,
+                                                            device=device, timings=tm))
         else:
-            engine = Int8FlatIndex(codes, INT8_SCALE, codes.shape[0], device)
+            engine = _sharded_or_one(
+                codes, n_shards, "INT8FLAT", device, t,
+                lambda c, tm: Int8FlatIndex(c, INT8_SCALE, c.shape[0], device))
         n_vects, dim = codes.shape
     else:
         embeddings = embed_input_file(ref_file, ref_len, stride, vectorizer)
         t["embed"] = time.perf_counter() - t0
         if embeddings.shape[0] == 0:
             raise ValueError(f"No sequences found in file: {ref_file}")
-        if index_type in _HNSW_ENGINES:
+        if n_shards > 1:
+            engine = ShardedANNIndex.build(embeddings, make_mesh(n_shard=n_shards,
+                                                                 devices=[device]),
+                                           cfg, index_type)
+        elif index_type in _HNSW_ENGINES:
             cls = HNSWPQIndex if index_type == "HNSWPQ" else HNSWFlatIndex
             engine = cls.build(embeddings, cfg, device, timings=t)
         elif index_type in ("PQFLAT", "IVFPQ", "IVFINT8"):
@@ -490,4 +529,100 @@ def build_index(
     save_config(config, index_prefix)  # last: config.txt marks a complete build
     _drop_cache(cache)
     t["save"] = time.perf_counter() - t0
+    return config
+
+
+def make_fasta_embed_rows(fasta_path: str, ref_len: int, stride: int,
+                          vectorizer: Vectorizer, window_chunk: int = 65536,
+                          transform=None):
+    """embed_rows(start, end) for per-process builds
+    (``parallel.distributed.build_own_shards``): embeds exactly the global
+    VECTOR-row range [start, end) of the FASTA's interleaved (fwd, rev)
+    window stream, record-aware, so a process reads only the genome bytes
+    its shards cover.  transform applies on the device before the download
+    (int8 quantization ships 128 B a row).  embed_rows.n_vectors is the row
+    count.  Counterpart of build.make_fasta_embed_rows."""
+    records = fasta_io.parse_fasta_records(fasta_path)
+    nwins = [fasta_io.num_windows(len(r), ref_len, stride) for r in records]
+    bounds = np.concatenate([[0], np.cumsum([2 * n for n in nwins])]).astype(np.int64)
+
+    def embed_rows(start: int, end: int) -> np.ndarray:
+        outs = []
+        for ri, rec in enumerate(records):
+            lo = int(max(start, bounds[ri]))
+            hi = int(min(end, bounds[ri + 1]))
+            if lo >= hi:
+                continue
+            # covering window range (rows are 2*window + strand)
+            rlo, rhi = lo - int(bounds[ri]), hi - int(bounds[ri])
+            w0, w1 = rlo // 2, (rhi + 1) // 2
+            parts = [
+                _embed_record_windows(rec, ref_len, stride, ws,
+                                      min(window_chunk, w1 - ws), vectorizer,
+                                      transform=transform)
+                for ws in range(w0, w1, window_chunk)
+            ]
+            emb = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            outs.append(emb[rlo - 2 * w0: rhi - 2 * w0])
+        if not outs:
+            return np.zeros((0, OUT_SIZE), np.int8 if transform is not None else np.float32)
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+    embed_rows.n_vectors = int(bounds[-1])
+    return embed_rows
+
+
+def build_index_distributed(
+    ref_file: str,
+    index_prefix: str,
+    ref_len: int,
+    stride: int = 1,
+    index_type: str = "INT8FLAT",
+    build_cfg: BuildConfig | None = None,
+    vectorizer: Vectorizer | None = None,
+    n_shards: int = 1,
+    weights: str | None = None,
+    device: torch.device | str | None = None,
+) -> dict:
+    """Per-process sharded build: every rank of the group embeds and
+    persists ONLY its own shards (its slice of the genome's window rows);
+    rank 0 writes the manifest and config.txt, and every rank waits for
+    the others before it returns, so the index is whole on return.  One
+    process builds every shard -- the layout of build_index(n_shards=...).
+    INT8FLAT / IVFINT8 shards take the fixed int8 scale (quantized on the
+    device); the other engines build each shard apart (PQ: a codebook per
+    shard), as in the JAX package."""
+    engine_class(index_type)  # an unknown index type raises here, before any work
+    device = resolve_device(device)
+    cfg = build_cfg or BuildConfig()
+    vectorizer = _resolve_weights(weights, vectorizer, device)
+    codes_scale = transform = None
+    if index_type in _INT8_ENGINES:
+        codes_scale = INT8_SCALE
+        transform = lambda e: quantize(e, INT8_SCALE)  # noqa: E731
+    embed_rows = make_fasta_embed_rows(ref_file, ref_len, stride, vectorizer,
+                                       transform=transform)
+    n_vectors = embed_rows.n_vectors
+    dist_.build_own_shards(embed_rows, n_vectors, n_shards, index_prefix, cfg=cfg,
+                           index_type=index_type, codes_scale=codes_scale, device=device)
+    config = {
+        "index_type": index_type,
+        "stride": stride,
+        "ref_len": ref_len,
+        "n_vects": n_vectors,
+        "dim": OUT_SIZE,
+        "M_hnsw": cfg.m_hnsw,
+        "EFC": cfg.efc,
+        "M_pq": cfg.m_pq,
+        "nbits": cfg.nbits,
+        "index_file": "sharded",
+    }
+    if weights is not None:
+        config["weights"] = "encoder.npz"
+    if dist_.is_main():
+        if weights is not None:
+            os.makedirs(index_prefix, exist_ok=True)
+            shutil.copyfile(weights, os.path.join(index_prefix, "encoder.npz"))
+        save_config(config, index_prefix)
+    dist_.barrier()
     return config

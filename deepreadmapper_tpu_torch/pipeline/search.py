@@ -36,6 +36,7 @@ from deepreadmapper_tpu_torch.index.hnsw import HNSWPQIndex
 from deepreadmapper_tpu_torch.index.ivf_int8 import IVFInt8Index
 from deepreadmapper_tpu_torch.index.registry import load_index
 from deepreadmapper_tpu_torch.models.encoder import Vectorizer, load_params
+from deepreadmapper_tpu_torch.parallel import distributed as dist_
 from deepreadmapper_tpu_torch.pipeline import longread as lr_mod
 from deepreadmapper_tpu_torch.pipeline import postprocess as pp
 from deepreadmapper_tpu_torch.pipeline.paired import PAD_ID, rescue_mates, resolve_pairs
@@ -414,6 +415,13 @@ def run_pipeline(
                                            search_stats)
         t_search = time.time() - t0
 
+    # Under a process group every rank runs the same pipeline (the same
+    # reads, the sharded search merged on every rank); only rank 0 writes
+    # the output files.  write_sam keeps its role in the control flow (the
+    # streaming fallback below): the other ranks still run per batch and
+    # skip the writes.
+    is_main = dist_.is_main()
+    sam_out = write_sam and is_main
     os.makedirs(output_dir, exist_ok=True)
     sam_file = os.path.join(output_dir, "results.sam")
     have_seqs = query_seqs is not None
@@ -536,7 +544,7 @@ def run_pipeline(
             final_ids, final_d, lr_timings = _map_long(
                 query_seqs, query_ids, vectorizer, engine, genome, ref_len, k, ef,
                 stride, lr_max_chunks, multi, dense_off, sparse_off, base_off,
-                sam_file if write_sam else None, cigar, sam_kw)
+                sam_file if sam_out else None, cigar, sam_kw)
             t_search = time.time() - t1
         elif rerank == "sw":
             def fetch_windows(ids: np.ndarray):
@@ -555,7 +563,7 @@ def run_pipeline(
             )
             print(f"[MAIN] sw rerank: fetch {sw_timings['fetch']:.3f}s | "
                   f"score {sw_timings['sw']:.3f}s | sort {sw_timings['sort']:.3f}s")
-            if write_sam:
+            if sam_out:
                 mq = (compute_mapq(final_ids, final_d, ref_len,
                                    higher_is_better=True, dense_off=dense_off)
                       if mapq else None)
@@ -587,13 +595,14 @@ def run_pipeline(
                         np.zeros(start, np.int32),
                         compute_mapq(ids_b, d_b, ref_len, dense_off=dense_off),
                     ])
-                sam_io.write_sam(
-                    query_seqs[start:end], query_ids, ids_b.ravel(), "ref",
-                    ref_len, k, sam_file, append=start > 0,
-                    write_header=start == 0, query_offset=start,
-                    primary_cigars=pc, primary_pos_off=po, primary_tags=pt,
-                    mapq=mq, **sam_kw,
-                )
+                if sam_out:
+                    sam_io.write_sam(
+                        query_seqs[start:end], query_ids, ids_b.ravel(), "ref",
+                        ref_len, k, sam_file, append=start > 0,
+                        write_header=start == 0, query_offset=start,
+                        primary_cigars=pc, primary_pos_off=po, primary_tags=pt,
+                        mapq=mq, **sam_kw,
+                    )
                 sprog.update(end - start)
             sprog.close()
         else:
@@ -602,7 +611,7 @@ def run_pipeline(
                 k_clusters, bound, force_rerank=dense_rerank,
                 sparse_off=sparse_off, dense_off=dense_off,
             )
-            if write_sam:
+            if sam_out:
                 pc = po = mq = pt = None
                 if cigar:
                     pc, po, pt = cigars_of(query_seqs, final_ids[:, 0])
@@ -616,14 +625,14 @@ def run_pipeline(
                     sam_file, primary_cigars=pc, primary_pos_off=po,
                     primary_tags=pt, mapq=mq, **sam_kw,
                 )
-    if write_sam and os.path.exists(sam_file):
+    if sam_out and os.path.exists(sam_file):
         _finish_sam(sam_file, output_dir, sort, mark_dups, bam)
     t_post = time.time() - t0
     if long_reads:
         t_post -= t_search  # the chain path's search ran inside this timer
 
     # a streamed run's output is its SAM alone, as in the JAX package
-    if not use_streaming:
+    if not use_streaming and is_main:
         npys = (os.path.join(output_dir, "indices.npy"),
                 os.path.join(output_dir, "distances.npy"))
         if long_reads:
@@ -808,7 +817,8 @@ def run_pipeline_paired(
     with a warning, as in the JAX package.  Besides the JAX package's keys,
     the result holds t_index, t_ends (each end's embed and search seconds)
     and t_pair_split (the host seconds of resolve, rescue and sam).
-    Counterpart of the JAX run_pipeline_paired, in one process."""
+    Under a process group every rank runs it and rank 0 writes the
+    outputs.  Counterpart of the JAX run_pipeline_paired."""
     for flag, name in ((cigar, "--cigar"), (long_reads, "--long-reads"),
                        (use_streaming, "use_streaming")):
         if flag:
@@ -914,8 +924,10 @@ def run_pipeline_paired(
         if mapq_calibrated:
             mq1, mq2 = calibrate_mapq(mq1), calibrate_mapq(mq2)
 
+    # under a process group only rank 0 writes the outputs (run_pipeline)
+    is_main = dist_.is_main()
     os.makedirs(output_dir, exist_ok=True)
-    if write_sam:
+    if write_sam and is_main:
         sam_file = os.path.join(output_dir, "results.sam")
         pg = (f"pipeline-paired {index_prefix} {query_file1} {query_file2} "
               f"max_isize={max_isize}")
@@ -930,9 +942,10 @@ def run_pipeline_paired(
                          quals=parse_fastq_quals(query_file2) if qual else None,
                          mate=mate2, **sam_kw)
         _finish_sam(sam_file, output_dir, sort, mark_dups, bam)
-    save_results(np.vstack([ids1p, ids2p]), np.vstack([d1p, d2p]),
-                 os.path.join(output_dir, "indices.npy"),
-                 os.path.join(output_dir, "distances.npy"), ids1p.shape[1])
+    if is_main:
+        save_results(np.vstack([ids1p, ids2p]), np.vstack([d1p, d2p]),
+                     os.path.join(output_dir, "indices.npy"),
+                     os.path.join(output_dir, "distances.npy"), ids1p.shape[1])
     timings["sam"] = time.time() - t0
     n_proper = int(pair["proper"].sum())
     print(f"[MAIN] paired: {n_proper}/{ids1.shape[0]} proper pairs "

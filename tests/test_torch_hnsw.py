@@ -29,6 +29,7 @@ from deepreadmapper_tpu_torch.index import hnsw as th
 from deepreadmapper_tpu_torch.index import hnsw_build as thb
 from deepreadmapper_tpu_torch.index.registry import load_index
 from deepreadmapper_tpu_torch.ops import pq as tpq
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

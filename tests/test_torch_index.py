@@ -98,8 +98,10 @@ def test_index_files_cross_load(tmp_path, engine):
 
 
 def test_load_index_refuses_unported(tmp_path):
-    """A JAX-built HNSWPQ index loads (the engine is ported); a sharded
-    index is still refused, naming ROADMAP.md."""
+    """A JAX-built HNSWPQ index loads (the engine is ported), and so does a
+    JAX-built sharded index (sharded.txt): as the port's ShardedANNIndex,
+    answering as the JAX registry's engine does.  Nothing is refused any
+    more; an unknown index_type is a ValueError, as in the JAX registry."""
     from deepreadmapper_tpu.index.hnsw import HNSWPQIndex as JHNSWPQIndex
     from deepreadmapper_tpu.io.configstore import save_config
     from deepreadmapper_tpu_torch.index.hnsw import HNSWPQIndex
@@ -112,8 +114,24 @@ def test_load_index_refuses_unported(tmp_path):
     assert isinstance(engine, HNSWPQIndex) and engine.ntotal == 600
     ids, d = engine.search(ref[:5], 4, ef=32)
     assert ids.shape == (5, 4) and (ids[:, 0] == np.arange(5)).all()
-    (tmp_path / "sharded.txt").write_text("n_shard 2\n")
-    with pytest.raises(NotImplementedError, match="sharded.*ROADMAP.md"):
+    from deepreadmapper_tpu.index.registry import load_index as jload
+    from deepreadmapper_tpu.parallel.mesh import make_mesh
+    from deepreadmapper_tpu.parallel.sharded_ann import ShardedANNIndex as JSharded
+    from deepreadmapper_tpu_torch.parallel.sharded_ann import ShardedANNIndex
+
+    sdir = tmp_path / "sharded"
+    JSharded.build(ref, make_mesh(n_data=1, n_shard=2), index_type="INT8FLAT").save(str(sdir))
+    save_config({"index_type": "INT8FLAT", "stride": 1, "ref_len": 150,
+                 "n_vects": 600, "dim": 128}, str(sdir))
+    engine, _ = load_index(str(sdir), device="cpu")
+    assert isinstance(engine, ShardedANNIndex) and len(engine.subs) == 2
+    ids, d = engine.search(ref[:7], 4)
+    jids, jd = jload(str(sdir))[0].search(ref[:7], 4)
+    np.testing.assert_array_equal(ids, jids)
+    np.testing.assert_array_equal(d, jd)
+    assert (ids[:, 0] == np.arange(7)).all()
+    save_config({"index_type": "NOPE", "stride": 1, "ref_len": 150}, str(tmp_path))
+    with pytest.raises(ValueError, match="Unknown index_type"):
         load_index(str(tmp_path), device="cpu")
 
 

@@ -12,6 +12,7 @@ import torch
 from deepreadmapper_tpu.index import knn_build as jknn
 from deepreadmapper_tpu_torch.index import knn_build as tknn
 from deepreadmapper_tpu_torch.ops import topk
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -24,6 +24,7 @@ import torch
 from deepreadmapper_tpu.pipeline import longread as jlr
 from deepreadmapper_tpu_torch import native
 from deepreadmapper_tpu_torch.pipeline import longread as tlr
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 REF_LEN = 150
 _COMP = str.maketrans("ACGT", "TGCA")

@@ -15,6 +15,8 @@ from deepreadmapper_tpu.io.fastq import parse_fastq_bytes
 from deepreadmapper_tpu.pipeline import search as jsearch
 from deepreadmapper_tpu_torch import native
 from deepreadmapper_tpu_torch.pipeline import search as tsearch
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
+from jax_native_guard import can_build, jax_native_available
 
 REF_LEN = 150
 
@@ -84,6 +86,39 @@ def test_primary_alignment_cigars_equal_jax(data_dir, multi):
     """The fixture reads against primaries on both strands (their true
     windows), shifted windows (soft clips), random windows, invalid (-1)
     ids; on one record and on the genome cut into three records."""
+    _compare_primary_cigars(data_dir, multi)
+
+
+@pytest.mark.skipif(not (native.available() and can_build()),
+                    reason="native library or g++ unavailable")
+def test_half_written_jax_library_fails_the_comparison_without_the_guard(
+        data_dir, tmp_path, monkeypatch):
+    """Why the port's cross-package tests load the JAX library through
+    jax_native_guard: a process that loads it while another still writes it
+    (g++ writes straight onto the final path) caches the failure, and
+    test_primary_alignment_cigars_equal_jax's comparison then fails, even
+    after the file is whole.  The guard reloads the finished file, and the
+    comparison passes.  The module state comes back with monkeypatch."""
+    from deepreadmapper_tpu import native as jnative
+
+    whole = open(jnative._SO, "rb").read()
+    so = tmp_path / os.path.basename(jnative._SO)
+    so.write_bytes(whole[:64])  # the writer has the ELF header out, no more
+    monkeypatch.setattr(jnative, "_SO", str(so))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    assert not jnative.available()
+    with pytest.raises(AssertionError):
+        _compare_primary_cigars(data_dir, False)
+    so.write_bytes(whole)  # the writer finishes; the failed load stays cached
+    assert not jnative.available()
+    with pytest.raises(AssertionError):
+        _compare_primary_cigars(data_dir, False)
+    assert jax_native_available(settle_s=0.05)
+    _compare_primary_cigars(data_dir, False)
+
+
+def _compare_primary_cigars(data_dir, multi):
     rec = _fixture_genome(data_dir)
     mat, lengths, names = parse_fastq_bytes(str(data_dir / "test_data.fastq"))
     seqs = [bytes(r[: int(n)]).decode() for r, n in zip(mat, lengths)]

@@ -22,6 +22,7 @@ import torch
 from deepreadmapper_tpu.pipeline import paired as jpaired
 from deepreadmapper_tpu_torch import native
 from deepreadmapper_tpu_torch.pipeline import paired as tpaired
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 REF_LEN = 150
 ISIZE = 500

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from deepreadmapper_tpu.io import fastq
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,25 +82,13 @@ def test_dense_rerank_matches_jax_cli(data_dir, tmp_path):
     np.testing.assert_array_equal(ti[clear], ji[clear])
 
 
-def test_cli_refuses_unported_features(data_dir, tmp_path):
-    from deepreadmapper_tpu_torch import cli
-
-    fna = str(data_dir / "ecoli_150.fna")
-    for argv in (
-        ["build-index", fna, str(tmp_path / "a"), "150", "--distributed"],
-        ["build-index", fna, str(tmp_path / "a"), "150", "--shards", "2"],
-        ["pipeline", str(tmp_path / "a"), fna, fna, "--distributed"],
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main([*argv, "--device", "cpu"])
-
-
 def test_port_cli_never_imports_jax(data_dir, tmp_path):
     """build-index -> pipeline through the port's CLI in a fresh process
     (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8, finetune ->
     build-index --weights -> pipeline, the SAM options, inference,
     --paired2, --long-reads --cigar, HNSWPQ at stride 4, HNSWFLAT
-    --build-mode knn --level-mode centroid, info) with serve, bench, io.bam,
+    --build-mode knn --level-mode centroid, IVFINT8 --shards 2, info) with
+    serve, bench, io.bam,
     io.npy_stream and ops.pack imported, then assert that neither jax nor
     any module of the JAX package was imported."""
     code = (
@@ -143,6 +132,10 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
         " '--build-mode', 'knn', '--level-mode', 'centroid', *dev]) == 0\n"
         "assert cli.main(['pipeline', d + '/hflat', fq, fna, '64', '16', '5', d + '/hflat_out',"
         " '--no-sam', *dev]) == 0\n"
+        "assert cli.main(['build-index', fna, d + '/sh', '150', '--shards', '2',"
+        " '--index-type', 'IVFINT8', *dev]) == 0\n"
+        "assert cli.main(['pipeline', d + '/sh', fq, fna, '16', '8', '5', d + '/sh_out',"
+        " *dev]) == 0\n"
         "assert cli.main(['info', d + '/idx']) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = sorted(m for m in sys.modules if m == 'deepreadmapper_tpu'"
@@ -166,6 +159,8 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     assert os.path.exists(tmp_path / "lr_out" / "results.sam")
     assert os.path.exists(tmp_path / "hpq_out" / "results.sam")
     assert os.path.exists(tmp_path / "hflat_out" / "indices.npy")
+    assert os.path.exists(tmp_path / "sh" / "shard_1" / "ivf_int8.npz")
+    assert os.path.exists(tmp_path / "sh_out" / "results.sam")
 
 
 @pytest.mark.parametrize("cmd", ["build-index", "pipeline", "finetune", "inference",

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from deepreadmapper_tpu_torch.pipeline import search as tsearch
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 REF_LEN = 150
 RG = "ID:rg1,SM:sampleA,PL:ILLUMINA"

@@ -13,6 +13,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 RTOL, ATOL = 1e-4, 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -10,6 +10,7 @@ from deepreadmapper_tpu import native
 from deepreadmapper_tpu import tokenizer as tok
 from deepreadmapper_tpu import tokenizer_device as jtd
 from deepreadmapper_tpu_torch import tokenizer_device as ttd
+from jax_native_guard import _jax_native_loaded  # noqa: F401  (module fixture)
 
 
 def _edge_reads():
