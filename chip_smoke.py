@@ -84,6 +84,23 @@ Phases (any failure raises and the exit code is not 0):
               the one card (gloo collectives): their indices.npy,
               distances.npy and results.sam equal (a)'s byte for byte, and
               rank 1 writes no file
+ 14. finetune_dp data-parallel fine-tuning on phase 5's genome: (a) two gloo
+              ranks on the one card through the API, 10 steps at the CLI's
+              global batch of 512 (256 a rank), seed 0, against the
+              one-process finetune of the same steps on the card (losses
+              rtol 1e-4, each weight's update within rule C7), one step's
+              gradient summed over the ranks against the one-process
+              gradient (within 1e-4 of each tensor's largest value), the
+              ranks' weights and gradients equal byte for byte, rank 1 never
+              saves the state, gru_fwd 12 and gru_bwd 8 launches a step on
+              each rank, the step time per rank and the collectives' share
+              of it; (b) the CLI under torchrun (finetune --distributed, a
+              1-rank NCCL group, so no collective runs: the CLI's plumbing)
+              against the same command without --distributed (the fp32 weights of
+              their --state files within C7; each npz is its state's weights
+              in fp16); (c) the one-process run of (a) under utils.trace's
+              stage and device_trace: the Chrome trace names gru_fwd and
+              gru_bwd
 Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
 results line), holds the four IVF chunk scans against their plain versions
 on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
@@ -92,7 +109,8 @@ cotangent recurrence at the training batch (512) and at 8192, and times the
 GRU forward per encoder batch (B = 8192) and per launch at the training
 batch.
 The last lines are one JSON object of kernel results (time, plain time,
-bound, library time, launches on the main path), the nvidia-smi line, and
+bound, library time, launches on the main path, and rank 0's launches in
+phase 14 (a)), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -170,6 +188,7 @@ SHARD_N_OTHER = 2                   # PQFLAT, IVFINT8, IVFPQ and HNSWPQ shards
 SHARD_FLAT_READS = 1024             # the exact fp32 search's reads (bounds its score tiles)
 SHARD_PACKED_READS = 2048           # the IVF packed route's batch (#5, #7): 2048 x 32 pairs
 SHARD_TIMEOUT = 300                 # seconds for each process phase 13 starts
+DP_STEPS, DP_RANKS = 10, 2           # phase 14: steps, gloo ranks on the one card
 # bwa's tab form with literal "\t" escapes; io.sam.parse_read_group (both
 # packages) takes the fields without bwa's leading "@RG"
 SAM_RG = "ID:smoke\\tSM:s1"
@@ -2856,6 +2875,278 @@ def phase_genome_shard(genome: dict, hnsw: dict):
         raise AssertionError(f"genome_shard: {bad}")
 
 
+# -- phase 14: data-parallel fine-tuning ---------------------------------------
+
+_DP_CHILD = """
+import json, os, sys, time
+root, port, rank, ref, work, steps, batch = sys.argv[1:8]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from deepreadmapper_tpu_torch import kernels
+from deepreadmapper_tpu_torch.models import encoder as enc
+from deepreadmapper_tpu_torch.parallel import distributed as dist
+from deepreadmapper_tpu_torch.parallel import train
+from deepreadmapper_tpu_torch.pipeline import finetune as ft
+dev = dist.init_distributed("gloo", device="cuda:0", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=int(rank))
+stamps, comm, saves = [], {"all_reduce": [], "all_gather": []}, []
+sample, save = ft.sample_pairs, ft.save_train_state
+
+def counted_save(*a, **kw):
+    saves.append(a[0])
+    return save(*a, **kw)
+
+def stamped(*a, **kw):
+    stamps.append(time.perf_counter())
+    return sample(*a, **kw)
+
+def timed(key, fn):
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        comm[key].append(time.perf_counter() - t)
+        return out
+    return run
+
+ft.sample_pairs = stamped
+ft.save_train_state = counted_save
+dist.all_reduce_sum_ = timed("all_reduce", dist.all_reduce_sum_)
+dist.all_gather_cat = timed("all_gather", dist.all_gather_cat)
+kernels.reset_counts()
+t0 = time.perf_counter()
+params, losses = ft.finetune(ref, 150, steps=int(steps), batch=int(batch), seed=0,
+                             device=dev, state_path=os.path.join(work, "state", "st.npz"))
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+counts = kernels.counts()
+np.savez(os.path.join(work, "res", f"rank{rank}.npz"), np.asarray(losses),
+         *train.leaves(params))
+n = len(stamps)
+steady = (stamps[-1] - stamps[2]) / (n - 3)
+said = {"rank": int(rank), "device": str(dev), "counts": counts, "wall": wall,
+        "setup": stamps[0] - t0, "steady": steady, "saves": len(saves),
+        "all_reduce": sum(comm["all_reduce"][2:n - 1]) / (n - 3),
+        "all_gather": sum(comm["all_gather"][4:2 * n - 2]) / (n - 3)}
+# one step's gradient from the shipped weights on finetune's first batch,
+# summed over the ranks
+rt, wt = sample(ft.fasta_io.extract_fasta_sequence(ref), 150, int(batch),
+                np.random.default_rng(0))
+per = int(batch) // 2
+rows = slice(int(rank) * per, (int(rank) + 1) * per)
+p0 = enc.torch_params(enc.load_params(), dev, requires_grad=True)
+loss = train.loss_fn(p0, torch.from_numpy(rt[rows]).to(dev), torch.from_numpy(wt[rows]).to(dev))
+loss.backward()
+grads = [q.grad for q in train.leaves(p0)]
+dist.all_reduce_sum_(grads)
+np.savez(os.path.join(work, "res", f"grad{rank}.npz"), np.asarray(loss.item()),
+         *[g.cpu().numpy() for g in grads])
+print("DPRESULT " + json.dumps(said), flush=True)
+print(f"RANK{rank}-OK", flush=True)
+"""
+
+
+def _hold_c7(tag: str, got, want, init, grads, steps: int, lr: float) -> str:
+    """Rule C7 (ROADMAP Queue C) on each weight's update after `steps` Adam
+    steps from `init`: within 5e-6, or within steps x 2 x lr where the first
+    gradient is non-zero but within 1e-4 of its tensor's largest; at most 1%
+    of the weights may take that allowance (at B = 512 on the shipped
+    weights 1.15% are eligible for it).  Raises; returns the readings."""
+    worst, worst_near, n_near, n_loose, n_all = 0.0, 0.0, 0, 0, 0
+    for g, w, i, gr in zip(got, want, init, grads):
+        ag = np.abs(gr)
+        near = (ag > 0) & (ag <= 1e-4 * ag.max())
+        diff = np.abs((g - i) - (w - i))
+        worst = max(worst, float(diff[~near].max()))
+        if near.any():
+            worst_near = max(worst_near, float(diff[near].max()))
+        n_near, n_all = n_near + int(near.sum()), n_all + near.size
+        n_loose += int((diff[near] > 5e-6).sum())
+    said = (f"updates within {worst:.3e} (need <= 5e-6); weights eligible for the "
+            f"near-zero-gradient allowance {n_near}/{n_all} ({n_near / n_all:.2%}), within "
+            f"{worst_near:.3e} (need <= {steps * 2 * lr:.0e}); weights taking it (beyond "
+            f"5e-6) {n_loose} ({n_loose / n_all:.2%}, need <= 1%)")
+    if worst > 5e-6 or worst_near > steps * 2 * lr or n_loose > 0.01 * n_all:
+        raise AssertionError(f"finetune_dp {tag}: {said}")
+    return said
+
+
+def phase_finetune_dp(results: dict, genome: dict, smi: str):
+    """Data-parallel fine-tuning on the one card (module docstring, phase
+    14): #1 and #9 on every rank."""
+    import socket
+
+    import torch
+
+    from deepreadmapper_tpu_torch import kernels
+    from deepreadmapper_tpu_torch.io import fasta as fasta_io
+    from deepreadmapper_tpu_torch.models import encoder as enc
+    from deepreadmapper_tpu_torch.parallel import train
+    from deepreadmapper_tpu_torch.pipeline import finetune as ft
+    from deepreadmapper_tpu_torch.utils.trace import device_trace, global_tracer, stage
+
+    ref = genome["ref"]
+    work = os.path.join(WORK, "finetune_dp")
+    for sub in ("state", "res", "trace", "b"):
+        os.makedirs(os.path.join(work, sub), exist_ok=True)
+    lr, per = 1e-4, TRAIN_B // DP_RANKS
+
+    # (a) two gloo ranks on cuda:0, then one process with the same steps
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = str(sock.getsockname()[1])
+    sock.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _DP_CHILD, ROOT, port, str(r), ref, work,
+                               str(DP_STEPS), str(TRAIN_B)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_RANKS)]
+    said = []
+    try:
+        for r, proc in enumerate(procs):
+            text, _ = proc.communicate(timeout=SHARD_TIMEOUT)
+            if proc.returncode != 0 or f"RANK{r}-OK" not in text:
+                raise AssertionError(f"finetune_dp (a) rank {r} failed:\n{text[-3000:]}")
+            said.append(json.loads(next(ln for ln in text.splitlines()
+                                        if ln.startswith("DPRESULT "))[len("DPRESULT "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_ranks = time.perf_counter() - t0
+    seq = fasta_io.extract_fasta_sequence(ref)
+    t = time.perf_counter()
+    ft.sample_pairs(seq, READ_LEN, TRAIN_B, np.random.default_rng(1))
+    t_sample = time.perf_counter() - t
+    for d in said:
+        log(f"[finetune_dp a] rank {d['rank']} on {d['device']} ({smi}): {DP_STEPS} steps of "
+            f"{per} rows of the global {TRAIN_B} in {d['wall']:.2f} s, set-up to the first step "
+            f"{d['setup']:.2f} s, steady {d['steady'] * 1e3:.2f} ms/step (host clock between "
+            f"step starts, steps 3-{DP_STEPS}): all_reduce of the gradients "
+            f"{d['all_reduce'] * 1e3:.2f} ms ({d['all_reduce'] / d['steady']:.1%}), the two "
+            f"embedding all_gathers {d['all_gather'] * 1e3:.2f} ms "
+            f"({d['all_gather'] / d['steady']:.1%}) a step (each synchronised on both sides); "
+            f"host sampling of the whole global batch {t_sample * 1e3:.2f} ms (one draw in "
+            f"this process); launches {d['counts']}")
+    log(f"[finetune_dp a] two ranks in {t_ranks:.2f} s, processes included ({smi})")
+    for d in said:
+        c = d["counts"]
+        if c["gru_fwd"] != 12 * DP_STEPS or c["gru_bwd"] != 8 * DP_STEPS:
+            raise AssertionError(f"finetune_dp (a) rank {d['rank']} launches {c} (want "
+                                 "gru_fwd 12 and gru_bwd 8 a step)")
+    def arrays(name):
+        out = []
+        for r in range(DP_RANKS):
+            with np.load(os.path.join(work, "res", f"{name}{r}.npz")) as z:
+                out.append([z[f"arr_{i}"] for i in range(len(z.files))])
+        return out
+
+    ranks, rgrads = arrays("rank"), arrays("grad")
+    for a, b in [*zip(*ranks), *zip(*rgrads)]:
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError("finetune_dp (a): the ranks' weights, losses or summed "
+                                 "gradients differ")
+    if [d["saves"] for d in said] != [1, 0] or \
+            os.listdir(os.path.join(work, "state")) != ["st.npz"]:
+        raise AssertionError(f"finetune_dp (a): state saves {[d['saves'] for d in said]} "
+                             f"(want [1, 0]), state dir {os.listdir(os.path.join(work, 'state'))}")
+    log("[finetune_dp a] the two ranks' losses, weights and summed gradients are equal byte "
+        "for byte; rank 0 saved the --state file once, rank 1 never")
+
+    # (c) the one-process run of the same steps, traced
+    tracer = global_tracer()
+    kernels.reset_counts()
+    with stage("finetune_dp one process"), device_trace(os.path.join(work, "trace")) as tpath:
+        one, losses = ft.finetune(ref, READ_LEN, steps=DP_STEPS, batch=TRAIN_B, seed=0,
+                                  lr=lr, device="cuda")
+        torch.cuda.synchronize()
+    c_one = kernels.counts()
+    rt, wt = ft.sample_pairs(seq, READ_LEN, TRAIN_B, np.random.default_rng(0))
+    params = enc.torch_params(enc.load_params(), "cuda", requires_grad=True)
+    loss0 = train.loss_fn(params, torch.from_numpy(rt).cuda(), torch.from_numpy(wt).cuda())
+    loss0.backward()
+    grads = [p.grad.cpu().numpy() for p in train.leaves(params)]
+    init = train.leaves(enc.load_params())
+    # one step: the ranks' all-reduced gradient against the one-process one
+    # (a gradient scaled by the world size misses by the whole largest value)
+    g_rel = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(rgrads[0][1:], grads))
+    l_rel = abs(float(rgrads[0][0]) - loss0.item()) / abs(loss0.item())
+    log(f"[finetune_dp a] one step's gradient summed over the two ranks against one "
+        f"process on the card: within {g_rel:.2e} of each tensor's largest value (need <= "
+        f"1e-4), loss within rtol {l_rel:.2e} (need <= 1e-5)")
+    if g_rel > 1e-4 or l_rel > 1e-5:
+        raise AssertionError(f"finetune_dp (a): summed gradients {g_rel:.3e}, loss {l_rel:.3e}")
+    rel = float(np.max(np.abs(ranks[0][0] - np.asarray(losses)) / np.abs(losses)))
+    log(f"[finetune_dp a] one process, {DP_STEPS} steps of {TRAIN_B} on the card: losses "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; the two ranks' global losses within rtol "
+        f"{rel:.2e} (need <= 1e-4); launches {c_one}")
+    if rel > 1e-4:
+        raise AssertionError(f"finetune_dp (a): losses {ranks[0][0].tolist()} against {losses}")
+    log(f"[finetune_dp a] two ranks against one process: "
+        f"{_hold_c7('(a)', ranks[0][1:], train.leaves(one), init, grads, DP_STEPS, lr)}")
+    trace = json.load(open(tpath))
+    kern = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kern) for k in ("gru_fwd", "gru_bwd")}
+    log(f"[finetune_dp c] stage + device_trace: {tracer.spans[-1][0]!r} {tracer.spans[-1][1]:.2f} "
+        f"s (profiler on; {smi}), {len(kern)} kernel events in "
+        f"{os.path.getsize(tpath) / 1e6:.1f} MB, by name {found}")
+    if not all(found.values()):
+        raise AssertionError(f"finetune_dp (c): the trace names no "
+                             f"{[k for k, v in found.items() if not v]}")
+
+    # (b) the CLI under torchrun (a 1-rank NCCL group) beside the same command
+    # without --distributed, both at once
+    argv = ["finetune", ref, str(READ_LEN), "--steps", str(DP_STEPS), "--batch",
+            str(TRAIN_B), "--seed", "0"]
+    cmds = {
+        "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "1", "-m", "deepreadmapper_tpu_torch.cli", *argv,
+                     "--distributed"],
+        "plain": [sys.executable, "-m", "deepreadmapper_tpu_torch.cli", *argv],
+    }
+    t0 = time.perf_counter()
+    procs = {tag: subprocess.Popen(
+        cmd + ["-o", os.path.join(work, "b", f"{tag}.npz"), "--state",
+               os.path.join(work, "b", f"{tag}_state.npz")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tag, cmd in cmds.items()}
+    try:
+        for tag, proc in procs.items():
+            text, _ = proc.communicate(timeout=SHARD_TIMEOUT)
+            if proc.returncode != 0 or "[FINETUNE] 10 steps" not in text:
+                raise AssertionError(f"finetune_dp (b) {tag} failed:\n{text[-3000:]}")
+            log(f"[finetune_dp b] {tag}: "
+                f"{[ln for ln in text.splitlines() if '[DIST]' in ln or '[FINETUNE]' in ln]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[finetune_dp b] both commands at once in {time.perf_counter() - t0:.2f} s ({smi})")
+    got = {}
+    for tag in cmds:
+        with np.load(os.path.join(work, "b", f"{tag}_state.npz")) as z:
+            named = {k: z[k] for k in z.files}
+        state = train.leaves(enc.params_from_named(named))
+        saved = train.leaves(enc.load_params(os.path.join(work, "b", f"{tag}.npz")))
+        for a, b in zip(saved, state):
+            if not np.array_equal(a, b.astype(np.float16).astype(np.float32)):
+                raise AssertionError(f"finetune_dp (b) {tag}: the npz is not its state in fp16")
+        got[tag] = state
+    log(f"[finetune_dp b] torchrun --distributed against the plain CLI, fp32 weights of the "
+        f"state files: {_hold_c7('(b)', got['torchrun'], got['plain'], init, grads, DP_STEPS, lr)}"
+        "; each npz is its state's weights in fp16")
+    for name in results:
+        results[name]["launches_finetune_dp"] = said[0]["counts"][name]
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = phase_device()
@@ -2903,6 +3194,10 @@ def main() -> int:
     phase_genome_shard(genome, hnsw)
     log(f"[time] phase 13 (genome_shard) in {time.perf_counter() - t13:.1f} s; phases 1-13 in "
         f"{time.perf_counter() - t0:.1f} s")
+    t14 = time.perf_counter()
+    phase_finetune_dp(results, genome, smi)
+    log(f"[time] phase 14 (finetune_dp) in {time.perf_counter() - t14:.1f} s; phases 1-14 in "
+        f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -2927,7 +3222,7 @@ def main() -> int:
         "gru_bwd": "deepreadmapper_tpu/models/gru_pallas.py:188",
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "launches_finetune_dp")
     rows = [
         {"name": k.name, "route": "cuda",
          "source": os.path.relpath(k.source, ROOT),

@@ -11,6 +11,7 @@ positional arguments of ``deepreadmapper_tpu/cli.py``:
   serve        <index_prefix> <ref> (JSONL requests on stdin)
   inference    <seqs> <ref_len> [out.npy] [batch]
   finetune     <ref> <ref_len> [-o tuned.npz --steps --batch --lr ...]
+               [--distributed]
   info         <index_prefix>
   plan         <genome FASTA | base count> [ref_len] [--stride --hbm-gb]
   gen-ref      -i input -l ref_len -s stride -o out
@@ -22,8 +23,10 @@ no device.  ``--distributed`` joins the process group torchrun starts
 (``torchrun --nproc-per-node N -m deepreadmapper_tpu_torch.cli ...``):
 each rank works on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo
 with ``--device cpu``; build-index then embeds and saves only each rank's
-shards, and pipeline loads only each rank's shards and writes its outputs
-on rank 0.
+shards, pipeline loads only each rank's shards and writes its outputs on
+rank 0, and finetune trains each rank on its slice of the global batch
+(the JAX CLI trains over every device of its mesh; under PyTorch that takes
+one process a card) and writes on rank 0.
 """
 
 from __future__ import annotations
@@ -201,6 +204,9 @@ def _add_finetune(sub):
                         "moments, rng); loaded if it exists, saved back "
                         "after training: exact resume (the port's own "
                         "layout)")
+    _add_distributed(p, "data parallelism, each rank trains on its slice of "
+                        "the --batch global batch (which must divide by the "
+                        "world size); rank 0 writes -o and --state")
     _add_device(p)
 
 
@@ -598,7 +604,11 @@ def main(argv=None) -> int:
 
     if args.cmd == "finetune":
         from deepreadmapper_tpu_torch.models.encoder import load_params
+        from deepreadmapper_tpu_torch.parallel.distributed import is_main
         from deepreadmapper_tpu_torch.pipeline.finetune import finetune, save_params_npz
+
+        if args.distributed:
+            device = _init_distributed(device)
 
         params, losses = finetune(
             args.ref_file, args.ref_len, steps=args.steps, batch=args.batch,
@@ -607,9 +617,10 @@ def main(argv=None) -> int:
             params=load_params(args.resume) if args.resume else None,
             state_path=args.state, device=device,
         )
-        save_params_npz(params, args.output)
-        print(f"[FINETUNE] {args.steps} steps, loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f}, saved {args.output}")
+        if is_main():
+            save_params_npz(params, args.output)
+            print(f"[FINETUNE] {args.steps} steps, loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}, saved {args.output}")
         return 0
     return 1
 

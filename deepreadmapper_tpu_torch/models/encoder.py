@@ -23,26 +23,18 @@ weights are buffers and ``encode_tokens`` runs under ``no_grad``.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 from torch import nn
 
 from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.models.gru import gru_proj_last, gru_proj_seq
+from deepreadmapper_tpu_torch.models.ir_loader import DEFAULT_NPZ
 from deepreadmapper_tpu_torch.tokenizer_device import tokens_from_packed
 
 HIDDEN = 64
 OUT_SIZE = 2 * HIDDEN
 MAX_LEN = 123
-
-# The shipped weights of the JAX package, read by file path: importing
-# deepreadmapper_tpu.models would load jax.
-DEFAULT_NPZ = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "deepreadmapper_tpu", "models", "data", "finetuned_sgn33.npz",
-)
 
 _LAYER_KEYS = ("w", "r", "bzr", "rbh")
 

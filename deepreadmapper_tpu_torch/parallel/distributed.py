@@ -115,6 +115,21 @@ def all_gather_cat(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return torch.cat(out, dim=dim).to(t.device)
 
 
+def all_reduce_sum_(tensors: list[torch.Tensor]) -> None:
+    """Sum each tensor over the ranks, in place: one all_reduce of one flat
+    buffer on the collectives' device (the CPU under gloo, so gloo ranks
+    may hold card tensors).  Every rank receives the same bytes."""
+    if world_size() == 1 or not tensors:
+        return
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors]).to(_comm_device())
+    dist.all_reduce(flat)
+    off = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[off:off + n].view(t.shape))
+        off += n
+
+
 def global_max(v: int) -> int:
     """The largest of an integer across the ranks."""
     if world_size() == 1:

@@ -3,7 +3,9 @@
 Counterpart of ``deepreadmapper_tpu/pipeline/finetune.py``.  Pairs are drawn
 from a reference genome on the host (windows of either strand, reads
 simulated from them with substitution, shift and indel noise); each step
-runs ``parallel.train.train_step`` on the device.  The result is a params
+runs ``parallel.train.train_step`` on the device, on this rank's slice of
+the global batch when a ``torch.distributed`` group is up.  The result is a
+params
 dict of fp32 numpy arrays (the layout of ``models.encoder.load_params``),
 and :func:`save_params_npz` writes it in the IR-layout fp16 npz that both
 packages' ``load_params`` read, and that ``build-index --weights`` takes.
@@ -21,6 +23,7 @@ from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch import tokenizer as tok
 from deepreadmapper_tpu_torch.io import fasta as fasta_io
 from deepreadmapper_tpu_torch.models import encoder as enc
+from deepreadmapper_tpu_torch.parallel import distributed as dist_
 from deepreadmapper_tpu_torch.parallel.train import make_optimizer, train_step
 
 
@@ -160,8 +163,22 @@ def finetune(
     state_path: when given, the full training state (params, Adam moments
     and step, step counter, data-rng position) is loaded from it if it
     exists and saved back after training: exact resume, unlike the
-    weights-only npz."""
+    weights-only npz.
+
+    Under a ``torch.distributed`` group, the port's counterpart of the JAX
+    package's mesh, training is data-parallel: batch is the GLOBAL batch
+    and must divide by the world size.  Every rank draws the whole batch
+    from the same rng, so the data stream and the state file are the JAX
+    package's, and trains on its contiguous slice; the losses are the
+    global batch's.  Every rank reads an existing state; rank 0 alone
+    writes it."""
     device = resolve_device(device)
+    world, rank = dist_.world_size(), dist_.rank()
+    if batch % world:
+        raise ValueError(f"batch {batch} must divide by the world size {world}: "
+                         "each rank trains on an equal slice of the global batch")
+    per = batch // world
+    rows = slice(rank * per, (rank + 1) * per)
     genome = fasta_io.extract_fasta_sequence(ref_file)
     tparams = enc.torch_params(params if params is not None else enc.load_params(),
                                device, requires_grad=True)
@@ -178,8 +195,9 @@ def finetune(
             os.makedirs(d, exist_ok=True)
         if os.path.exists(state_path):
             tparams, opt, step_done, rng = load_train_state(state_path, lr, device)
-            print(f"[FINETUNE] resumed from {state_path} at step {step_done}")
-        else:
+            if rank == 0:
+                print(f"[FINETUNE] resumed from {state_path} at step {step_done}")
+        elif rank == 0:
             print(f"[FINETUNE] no state at {state_path}, starting fresh")
     losses = []
     for _ in range(steps):
@@ -187,10 +205,13 @@ def finetune(
             genome, ref_len, batch, rng, sub_rate=sub_rate,
             max_shift=max_shift, indel_rate=indel_rate,
         )
-        losses.append(train_step(tparams, opt, _upload(rt, device), _upload(wt, device)))
+        losses.append(train_step(tparams, opt, _upload(rt[rows], device),
+                                 _upload(wt[rows], device)))
     losses = torch.stack(losses).tolist() if losses else []
     if state_path is not None:
-        save_train_state(state_path, tparams, opt, step_done + steps, rng)
+        if rank == 0:
+            save_train_state(state_path, tparams, opt, step_done + steps, rng)
+        dist_.barrier()
     return enc.numpy_params(tparams), losses
 
 

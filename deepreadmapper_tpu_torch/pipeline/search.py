@@ -42,6 +42,7 @@ from deepreadmapper_tpu_torch.pipeline import postprocess as pp
 from deepreadmapper_tpu_torch.pipeline.paired import PAD_ID, rescue_mates, resolve_pairs
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 from deepreadmapper_tpu_torch.utils.progress import Progress
+from deepreadmapper_tpu_torch.utils.trace import device_trace
 
 _CIGAR_RUN = re.compile(r"(\d+)([MID])")
 
@@ -240,15 +241,7 @@ def _profiler(profile_dir: str | None, device):
     so it shows both kernels of the main path."""
     if not profile_dir:
         return contextlib.nullcontext()
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "pipeline.pt.trace.json")
-    return profile(activities=acts,
-                   on_trace_ready=lambda prof: prof.export_chrome_trace(path))
+    return device_trace(profile_dir, "pipeline.pt.trace.json", cuda=device.type == "cuda")
 
 
 def _finish_sam(sam_file, output_dir, sort, mark_dups, bam):

@@ -87,10 +87,11 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     (INT8FLAT, PQFLAT + OPQ with the SW rerank, IVFINT8, finetune ->
     build-index --weights -> pipeline, the SAM options, inference,
     --paired2, --long-reads --cigar, HNSWPQ at stride 4, HNSWFLAT
-    --build-mode knn --level-mode centroid, IVFINT8 --shards 2, info) with
-    serve, bench, io.bam,
-    io.npy_stream and ops.pack imported, then assert that neither jax nor
-    any module of the JAX package was imported."""
+    --build-mode knn --level-mode centroid, IVFINT8 --shards 2, info,
+    finetune --distributed in one process under utils.trace's stage and
+    device_trace) with serve, bench, io.bam, io.npy_stream, ops.pack,
+    models.ir_loader, io.idmap and utils.logging imported, then assert that
+    neither jax nor any module of the JAX package was imported."""
     code = (
         "import sys\n"
         "from deepreadmapper_tpu_torch import cli\n"
@@ -117,6 +118,12 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
         "import deepreadmapper_tpu_torch.bench, deepreadmapper_tpu_torch.io.bam\n"
         "import deepreadmapper_tpu_torch.io.npy_stream, deepreadmapper_tpu_torch.ops.pack\n"
         "import deepreadmapper_tpu_torch.pipeline.serve\n"
+        "import deepreadmapper_tpu_torch.models.ir_loader, deepreadmapper_tpu_torch.io.idmap\n"
+        "import deepreadmapper_tpu_torch.utils.logging\n"
+        "from deepreadmapper_tpu_torch.utils.trace import device_trace, stage\n"
+        "with stage('finetune'), device_trace(d + '/ft_prof', cuda=False):\n"
+        "    assert cli.main(['finetune', fna, '150', '-o', d + '/tuned_dp.npz', '--steps',"
+        " '1', '--batch', '4', '--distributed', *dev]) == 0\n"
         "assert cli.main(['pipeline', d + '/idx', fq, fna, '128', '8', '5', d + '/sam_out',"
         " '--mapq', '--cigar', '--qual', '--sort', '--bam', '--mark-duplicates', *dev]) == 0\n"
         "assert cli.main(['inference', fq, '150', d + '/emb.npy', *dev]) == 0\n"
@@ -153,6 +160,8 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     assert os.path.exists(tmp_path / "ivf_out" / "indices.npy")
     assert os.path.exists(tmp_path / "tidx" / "encoder.npz")
     assert os.path.exists(tmp_path / "tuned_out" / "indices.npy")
+    assert os.path.exists(tmp_path / "tuned_dp.npz")
+    assert os.path.exists(tmp_path / "ft_prof" / "device.pt.trace.json")
     assert os.path.exists(tmp_path / "sam_out" / "results.bam")
     assert os.path.exists(tmp_path / "emb.npy")
     assert os.path.exists(tmp_path / "pe_out" / "results.sam")
