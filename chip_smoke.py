@@ -107,7 +107,12 @@ on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
 (and times the fold pass of #6 and #8 alone on it), and the GRU backward's
 cotangent recurrence at the training batch (512) and at 8192, and times the
 GRU forward per encoder batch (B = 8192) and per launch at the training
-batch.
+batch.  It holds the Smith-Waterman kernel to its plain version bit for bit
+on edge cases (P 0-3, the two pairs of a register apart in length, lr 512,
+lc > lr in one pass and in two, each G forced) and at the SW rerank's
+launch sizes (5,120 and 17,920 pairs) and 65,536, times it at those three,
+measures the DPX add-max rate its bound divides by, and counts the DPX
+instructions in its SASS.
 The last lines are one JSON object of kernel results (time, plain time,
 bound, library time, launches on the main path, and rank 0's launches in
 phase 14 (a)), the nvidia-smi line, and
@@ -123,6 +128,8 @@ import subprocess
 import sys
 import time
 
+from collections import Counter
+
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -133,7 +140,11 @@ GRU_B, GRU_T = 8192, 123
 TRAIN_B, TRAIN_STEPS = 512, 100     # the finetune CLI's default batch and steps
 SCAN_ROWS, SCAN_Q = 1 << 18, 8192
 SCAN_CHUNK = 1 << 21                # the INT8FLAT main path's chunk (choose_chunk: 8 x 2^18)
-SW_PAIRS = 65536                    # 512 reads x 128 candidates, 150 x 152 bytes
+# SW pairs a launch, 150 x 152 bytes: a query chunk of the SW rerank (512
+# reads) at stride 1 and k_clusters 10, the main path's (phase 6 makes 16);
+# one at stride 4 and k_clusters 5 (35 candidates a read); the shape of the
+# first version's table row
+SW_PAIRS = (5120, 17920, 65536)
 GENOME_BP, N_READS, READ_LEN = 2_000_000, 8192, 150
 PQ_GENOME_BP = 5_000_000            # ~10M windows: the README's PQFLAT tier
 SW_TOP1_FLOOR = 0.96                # main path at 5 Mbp (PERF.md section 2)
@@ -154,7 +165,13 @@ TF32_OPS_S = 495e12                 # TF32 tensor cores, dense
 # 32-bit integer add / compare / min / max: 64 results per SM per clock at
 # compute capability 9.0 (CUDA C++ Programming Guide), 132 SMs, 1.98 GHz
 INT32_OPS_S = 132 * 64 * 1.98e9
-SW_OPS_PER_CELL = 7                 # match test, diag+s, max 0, max(up,left), -1, max, best
+# The fewest instructions a Smith-Waterman cell needs on this card: DPX
+# carries two cells a register in 16-bit halves, and two cells take the
+# match xor, its add-max to {0, 2}, the add-max of diagonal and up, the
+# relu add-max of left, the add-max that keeps H - 1, and half a three-way
+# max for the best (csrc/sw_score.cu): 5.5 instructions for two cells.  The
+# rate is DPX's as check_sw measures it (NVIDIA's data sheet gives none).
+SW_OPS_PER_CELL = 5.5 / 2
 SAM_K = 10                          # phase 10's k: 81,920 SAM lines for 8192 reads
 BENCH_REPS = 100                    # the bench twin's tiling: bench.py's 15,000 reads
 # phase 11: results/eval_paired_r3_5mbp.json's shape (scripts/eval_paired.py)
@@ -223,6 +240,44 @@ def bound(nbytes: float, ops: float, ops_s: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sass_opcodes(so: str, fragment: str) -> dict:
+    """Opcode counts of each function of a built library whose name holds
+    fragment, from `cuobjdump -sass` of the toolkit that built it."""
+    import re
+
+    from deepreadmapper_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), Counter()) if fragment in m.group(1) else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if m and cur is not None:
+            cur[m.group(1)] += 1
+    return funcs
+
+
+def strip_name(func: str) -> str:
+    """'S=5' for sw_score_kernel<5>'s mangled name, else the name."""
+    import re
+
+    m = re.search(r"sw_score_kernelILi(\d+)E", func)
+    return f"S={m.group(1)}" if m else func
+
+
+def dpx_count(ops) -> int:
+    """DPX instructions among SASS opcode counts: VIADDMNMX, VIMNMX3 and the
+    16x2 forms of VIMNMX (Hopper's plain integer max is VIMNMX too)."""
+    return sum(n for op, n in ops.items()
+               if op.startswith(("VIADDMNMX", "VIMNMX3"))
+               or (op.startswith("VIMNMX") and "16" in op))
 
 
 def phase_device():
@@ -592,37 +647,108 @@ def _sw_edge_pairs(rng):
     return a, la, b, lb
 
 
+def _sw_more_pairs(rng):
+    """(tag, pairs, G) cases beyond the main-path shapes: batch sizes 0-3
+    (an odd P takes a pad pair of length 0), the two pairs of one register
+    differing in la and lb with one of them empty, lr = 512 against itself
+    (score 512), lc > lr with one pass and with two, and each G the
+    wrapper can choose at the main path's widths, forced."""
+    a, la, b, lb = _sw_pairs(rng, 8)
+    cases = [(f"P={p}", (a[:p], la[:p], b[:p], lb[:p]), None) for p in range(4)]
+    la2, lb2 = la[:4].copy(), lb[:4].copy()
+    la2[1], lb2[1], la2[2], lb2[3] = 37, 0, 0, 91
+    cases.append(("la/lb differ in a register", (a[:4], la2, b[:4], lb2), None))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    x = acgt[rng.integers(0, 4, (3, 512))]
+    cases.append(("lr 512 identical", (x, np.full(3, 512), x.copy(), np.full(3, 512)), None))
+    for lc in (600, 2000):  # 2000 > 32 x 40 columns: two passes
+        a3 = acgt[rng.integers(0, 4, (9, 100))]
+        b3 = acgt[rng.integers(0, 4, (9, lc))]
+        b3[:, 300:400] = a3
+        cases.append((f"lc {lc} > lr 100", (a3, rng.integers(0, 101, 9), b3,
+                                           rng.integers(0, lc + 1, 9)), None))
+    edge = _sw_edge_pairs(rng)
+    cases += [(f"edge cases, G={g}", edge, g) for g in (None, 4, 8, 16, 32)]
+    return cases
+
+
+def dpx_rate() -> float:
+    """Lane instructions a second of sw_dpx_rate's loop of independent DPX
+    add-max instructions (__viaddmax_s16x2_relu) on every scheduler."""
+    import torch
+
+    from deepreadmapper_tpu_torch import kernels
+
+    blocks, iters = 132 * 16, 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = cuda_time(lambda: kernels.SW_DPX_RATE.launch(out.data_ptr(), blocks, iters, stream), 5)
+    return blocks * 256 * iters * 32 / (ms * 1e-3)
+
+
 def check_sw(results: dict):
     import torch
 
+    from deepreadmapper_tpu_torch import kernels
     from deepreadmapper_tpu_torch.ops import sw
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
-    worst = 0
-    for tag, pairs in (("edge cases", _sw_edge_pairs(rng)),
-                       (f"{SW_PAIRS} pairs", _sw_pairs(rng, SW_PAIRS))):
-        a, la, b, lb = (torch.from_numpy(x).to(dev) for x in pairs)
-        got = sw.sw_scores(a, la, b, lb)
+    for tag, pairs, group in _sw_more_pairs(rng):
+        a, la, b, lb = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in pairs)
+        got = sw.sw_scores(a, la, b, lb, group=group)
         want = sw.sw_scores_reference(a, la, b, lb)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(f"sw_score {tag}: {bad} of {got.numel()} scores differ")
-        worst = max(worst, (got - want).abs().max().item() if got.numel() else 0)
-        log(f"[kernels] sw_score {tag}: scores exactly equal (max {int(got.max())})")
-    cells = float((la.double() * lb.double()).sum())
-    t_plain_a = cuda_time(lambda: sw.sw_scores_reference(a, la, b, lb), 1)
-    t_kernel = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 10)
-    t_plain_b = cuda_time(lambda: sw.sw_scores_reference(a, la, b, lb), 1)
-    log(f"[kernels] sw_score {SW_PAIRS} pairs of {READ_LEN}x{READ_LEN + 2}: kernel "
-        f"{t_kernel:.3f} ms ({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | plain "
-        f"{t_plain_a:.3f} / {t_plain_b:.3f} ms")
-    nbytes = float(la.sum() + lb.sum()) + 4.0 * 3 * SW_PAIRS
-    results["sw_score"] = {"max_abs_err": float(worst), "ms": t_kernel,
-                           "plain_ms": (t_plain_a + t_plain_b) / 2,
-                           **bound(nbytes, SW_OPS_PER_CELL * cells, INT32_OPS_S),
-                           "library_ms": None}
+        log(f"[kernels] sw_score {tag} (G, S, passes "
+            f"{sw.sw_layout(a.shape[0], a.shape[1], b.shape[1], group)}): scores exactly "
+            f"equal (max {int(got.max()) if got.numel() else '-'})")
+    rate = dpx_rate()
+    log(f"[kernels] DPX add-max rate (measured, sw_dpx_rate): {rate / 1e12:.2f} T/s "
+        f"({rate / (132 * 1.98e9):.1f} a clock an SM at 1.98 GHz); published int32 "
+        f"{INT32_OPS_S / 1e12:.2f} T/s")
+    shapes = {}
+    for p in SW_PAIRS:
+        a, la, b, lb = (torch.from_numpy(x).to(dev)
+                        for x in _sw_pairs(np.random.default_rng(2), p))
+        la, lb = la.int(), lb.int()  # the wrapper then launches nothing but the kernel
+        got = sw.sw_scores(a, la, b, lb)
+        want = sw.sw_scores_reference(a, la, b, lb)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"sw_score {p} pairs: {bad} of {p} scores differ")
+        del got, want
+        cells = float((la.double() * lb.double()).sum())
+        t_plain_a = cuda_time(lambda: sw.sw_scores_reference(a, la, b, lb), 1)
+        t_kernel = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 50)
+        t_plain_b = cuda_time(lambda: sw.sw_scores_reference(a, la, b, lb), 1)
+        nbytes = float(la.sum() + lb.sum()) + 4.0 * 3 * p
+        bd = bound(nbytes, SW_OPS_PER_CELL * cells, rate)
+        g = sw.sw_layout(p, a.shape[1], b.shape[1])
+        shapes[p] = {"ms": t_kernel, "plain_ms": (t_plain_a + t_plain_b) / 2, **bd,
+                     "groups": g[0]}
+        log(f"[kernels] sw_score {p} pairs of {READ_LEN}x{READ_LEN + 2} (G, S, passes {g}): "
+            f"scores exactly equal; kernel {t_kernel:.4f} ms ({cells / (t_kernel * 1e-3) / 1e9:.1f}"
+            f" GCUPS) | plain {t_plain_a:.3f} / {t_plain_b:.3f} ms | bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {SW_OPS_PER_CELL} instructions a "
+            f"cell at the measured DPX rate)")
+    funcs = sass_opcodes(kernels.SW_SCORE.build(), "sw_score_kernel")
+    dpx = {strip_name(f): dpx_count(c) for f, c in funcs.items()}
+    main_s = f"S={sw.sw_layout(SW_PAIRS[0], READ_LEN, READ_LEN + 2)[1]}"
+    log(f"[kernels] sw_score SASS (sm_90a), DPX instructions by strip: {dpx}; the main "
+        f"path's {main_s}: {dict(sum((c for f, c in funcs.items() if strip_name(f) == main_s), Counter()).most_common(12))}")
+    if not dpx.get(main_s):
+        raise AssertionError(f"sw_score's {main_s} kernel has no DPX instruction")
+    main = shapes[SW_PAIRS[0]]
+    results["sw_score"] = {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+                           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                           "library_ms": None,
+                           "extra": {"pairs": {str(p): v for p, v in shapes.items()},
+                                     "dpx_instructions": dpx[main_s],
+                                     "dpx_rate_measured": rate}}
 
 
 def check_pq(results: dict):
@@ -3226,7 +3352,8 @@ def main() -> int:
     rows = [
         {"name": k.name, "route": "cuda",
          "source": os.path.relpath(k.source, ROOT),
-         "replaces": replaces[k.name], **{key: results[k.name][key] for key in keys}}
+         "replaces": replaces[k.name], **{key: results[k.name][key] for key in keys},
+         **results[k.name].get("extra", {})}
         for k in kernels.ALL
     ]
     print(json.dumps({"kernels": rows}))

@@ -23,8 +23,13 @@ from deepreadmapper_tpu_torch import kernels
 _PAD_A = 254
 _PAD_B = 255
 
-_KT = 128       # pairs per block (csrc/sw_score.cu THREADS)
-_MAX_LR = 512   # longest a row the kernel's shared memory holds
+_MAX_LR = 512   # longest a row the kernel takes (a score, at most lr, fits its 16-bit halves)
+_THREADS = 128  # lanes a block (csrc/sw_score.cu THREADS)
+# columns a lane holds in registers: the kernel's instantiations of S
+_STRIPS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32, 40)
+_SMEM = 232_448  # shared memory a block may use on an H100
+# lanes that put 4 warps on each scheduler of an H100 (132 SMs x 4)
+_LANES_WANTED = 132 * 4 * 4 * 32
 
 
 def _pack(mat: torch.Tensor, lens: torch.Tensor, pad: int) -> torch.Tensor:
@@ -76,11 +81,42 @@ def sw_scores_reference(a_mat, a_lens, b_mat, b_lens, chunk: int = 8192):
     return out
 
 
+def sw_layout(p: int, lr: int, lc: int, group: int | None = None) -> tuple[int, int, int]:
+    """How csrc/sw_score.cu splits a launch of p pairs of widths lr x lc:
+    (G, S, passes).  A group of G lanes shares two pairs; each lane holds S
+    columns of b, and the G x S columns a pass covers are walked in
+    `passes` passes (more than one only when lc > 32 x 40).  G is the
+    smallest power of two that gives the launch 4 warps a scheduler of the
+    card where p allows, and no smaller than the registers (S <= 40) and the
+    shared memory (the A words of 128 / G groups) need, and no more lanes
+    than lc has columns.  `group` forces G (tests)."""
+    lc = max(lc, 1)
+    g_min = 1
+    while g_min < 32 and (-(-lc // g_min) > _STRIPS[-1]
+                          or 4 * (_THREADS // g_min) * (lr | 1) > _SMEM):
+        g_min *= 2
+    if group is None:
+        g, g_max = g_min, max(g_min, min(32, 1 << (lc.bit_length() - 1)))
+        while g < g_max and (p + 1) // 2 * g < _LANES_WANTED:
+            g *= 2
+    elif group in (1, 2, 4, 8, 16, 32) and group >= g_min:
+        g = group
+    else:
+        raise ValueError(f"sw_score takes G a power of two in [{g_min}, 32] at "
+                         f"lr {lr}, lc {lc}, got {group}")
+    per_lane = -(-lc // g)
+    passes = -(-per_lane // _STRIPS[-1])
+    s = next(x for x in _STRIPS if x * passes >= per_lane)
+    return g, s, passes
+
+
 def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
-              b_lens: torch.Tensor) -> torch.Tensor:
+              b_lens: torch.Tensor, group: int | None = None) -> torch.Tensor:
     """Batched SW scores: csrc/sw_score.cu on CUDA tensors, the plain version
     on CPU tensors.  a_mat [P, lr] / b_mat [P, lc] uint8, lengths [P] (any
-    integer type; clipped to [0, width]) -> int32 [P]."""
+    integer type; clipped to [0, width]) -> int32 [P].  The kernel reads no
+    byte past a row's length: it takes the sentinels there itself.  `group`
+    forces the kernel's G (tests; see :func:`sw_layout`)."""
     if a_mat.dtype != torch.uint8 or b_mat.dtype != torch.uint8:
         raise TypeError(f"sw_scores takes uint8 bytes, got {a_mat.dtype}, {b_mat.dtype}")
     if a_mat.dim() != 2 or b_mat.dim() != 2:
@@ -101,6 +137,7 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
     lr, lc = a_mat.shape[1], b_mat.shape[1]
     if lr > _MAX_LR:
         raise ValueError(f"sw_score kernel holds a rows up to {_MAX_LR} bytes, got {lr}")
+    g, strip, passes = sw_layout(p, lr, lc, group)
     out = torch.empty(p, dtype=torch.int32, device=dev)
     if p == 0:
         return out
@@ -112,6 +149,6 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         kernels.SW_SCORE.launch(
             a_mat.data_ptr(), la.data_ptr(), b_mat.data_ptr(), lb.data_ptr(),
-            out.data_ptr(), p, lr, lc, stream,
+            out.data_ptr(), p, lr, lc, g, strip, passes, stream,
         )
     return out

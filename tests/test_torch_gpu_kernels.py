@@ -161,6 +161,68 @@ def test_sw_kernel_matches_plain(cuda):
     assert empty.shape == (0,)
 
 
+def _sw_check(cuda, a, la, b, lb, group=None):
+    """The kernel's scores (one launch) equal the plain version's."""
+    args = [torch.as_tensor(np.ascontiguousarray(x)).to(cuda) for x in (a, la, b, lb)]
+    before = kernels.SW_SCORE.launches
+    got = sw.sw_scores(*args, group=group)
+    assert kernels.SW_SCORE.launches == before + (1 if len(a) else 0)
+    want = sw.sw_scores_reference(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("p", [0, 1, 2, 3, 1000])
+def test_sw_kernel_batch_sizes(cuda, p):
+    # an odd P takes a pad pair of length 0
+    _sw_check(cuda, *(x[:p] for x in _sw_pairs(16, seed=p)))
+
+
+def test_sw_kernel_register_pairs_differ(cuda):
+    """The two pairs of one register apart in la and in lb, one of them of
+    length 0, and la = 0 or lb = 0 alone."""
+    a, la, b, lb = (x[:8] for x in _sw_pairs(16, seed=6))
+    la[:] = torch.tensor([150, 37, 0, 150, 150, 150, 12, 150])
+    lb[:] = torch.tensor([152, 152, 152, 0, 91, 0, 152, 3])
+    got = _sw_check(cuda, a, la, b, lb)
+    assert int(got[2]) == 0 and int(got[3]) == 0 and int(got[5]) == 0
+
+
+def test_sw_kernel_lr_512_identical(cuda):
+    rng = np.random.default_rng(7)
+    x = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (5, 512))]
+    got = _sw_check(cuda, x, np.full(5, 512), x.copy(), np.full(5, 512))
+    assert (got == 512).all()
+
+
+@pytest.mark.parametrize("lc", [600, 2000])  # 2000 > 32 lanes x 40 columns: two passes
+def test_sw_kernel_lc_above_lr(cuda, lc):
+    rng = np.random.default_rng(lc)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    a = acgt[rng.integers(0, 4, (77, 100))]
+    b = acgt[rng.integers(0, 4, (77, lc))]
+    b[:, 250:350] = a
+    la, lb = rng.integers(0, 101, 77), rng.integers(0, lc + 1, 77)
+    la[0], lb[0] = 100, lc
+    got = _sw_check(cuda, a, la, b, lb)
+    assert int(got[0]) == 100
+
+
+@pytest.mark.parametrize("p", [5120, 17920, 65536])
+def test_sw_kernel_main_path_shapes(cuda, p):
+    """The SW rerank's launches at stride 1 / k_clusters 10 and stride 4 /
+    k_clusters 5 (512 reads each), and 65,536 pairs."""
+    _sw_check(cuda, *_sw_pairs(p, seed=p))
+
+
+@pytest.mark.parametrize("group,lc", [(1, 40), (2, 40), (4, 152), (8, 152), (16, 152),
+                                      (32, 152)])
+def test_sw_kernel_each_group(cuda, group, lc):
+    a, la, b, lb = _sw_pairs(999, seed=group)
+    _sw_check(cuda, a, la, b[:, :lc], lb.clamp(max=lc), group=group)
+
+
 def _pq_tie_book(rng, np_):
     """Tie-heavy PQ inputs (m 8, nbits 2): codebook entries in {-1, 0, 1}
     and every row one of 16 code patterns, so most window minima are

@@ -125,6 +125,70 @@ def test_sw_scores_rejects_bad_inputs():
         tsw.sw_scores(a, n[:2], a, n)
 
 
+@pytest.mark.parametrize("lc", [3, 152, 514])
+@pytest.mark.parametrize("p", [1, 5120, 17920, 65536, 10**6])
+def test_sw_layout_covers_every_column(p, lc):
+    """The kernel's lane (q, g) holds columns (q G + g) S .. + S - 1: G x S
+    x passes slots cover the lc columns once each, S fits the registers
+    (<= 40) and G is a power of two <= 32."""
+    g, s, passes = tsw.sw_layout(p, 150, lc)
+    assert g in (1, 2, 4, 8, 16, 32) and 1 <= s <= 40 and passes == 1
+    cols = sorted((q * g + lane) * s + k for q in range(passes) for lane in range(g)
+                  for k in range(s))
+    assert cols == list(range(g * s * passes)) and g * s * passes >= lc
+    # the fewest lanes that give 4 warps to each scheduler of 132 SMs, where p
+    # and lc allow
+    wanted, pairs2 = 132 * 4 * 4 * 32, (p + 1) // 2
+    assert g == min(32, 1 << (lc.bit_length() - 1)) or pairs2 * g >= wanted
+    try:
+        smaller = g > 1 and tsw.sw_layout(p, 150, lc, g // 2)
+    except ValueError:
+        smaller = False
+    assert not smaller or pairs2 * (g // 2) < wanted
+    for forced in (g, 32):
+        assert tsw.sw_layout(p, 150, lc, forced)[0] == forced
+    with pytest.raises(ValueError):
+        tsw.sw_layout(p, 150, lc, 3)
+
+
+def test_sw_layout_passes_and_shared_memory():
+    """lc beyond 32 lanes x 40 columns takes passes; lr 512 needs G >= 2
+    for the A words of 128 / G groups to fit in shared memory."""
+    assert tsw.sw_layout(1, 100, 2000) == (32, 32, 2)
+    assert tsw.sw_layout(10**6, 512, 20)[0] == 2
+    assert tsw.sw_layout(10**6, 150, 20)[0] == 1
+    with pytest.raises(ValueError):
+        tsw.sw_layout(10, 150, 152, 2)  # 76 columns a lane: too many registers
+
+
+def test_kernel_padding_matches_jax():
+    """The kernel runs both pairs of a register to the longer one's lengths,
+    reading a past la as 254 and b past lb as 255, and pads an odd P with a
+    pair of length 0.  Those inputs score through the plain version as the
+    JAX package scores the unpadded pairs."""
+    rng = np.random.default_rng(5)
+    acgtn = np.frombuffer(b"ACGTN<>", np.uint8)
+    p, lr, lc = 41, 30, 33
+    a = acgtn[rng.integers(0, 7, (p, lr))]
+    b = acgtn[rng.integers(0, 7, (p, lc))]
+    b[::3, 2:32] = a[::3]
+    la, lb = rng.integers(0, lr + 1, p), rng.integers(0, lc + 1, p)
+    la[4], lb[7], la[9] = 0, 0, lr
+    want = jsw.sw_scores(a, la, b, lb)
+    # the pad pair, then each register's two pairs out to the longer lengths
+    ap = np.concatenate([a, np.zeros((1, lr), np.uint8)])
+    bp = np.concatenate([b, np.zeros((1, lc), np.uint8)])
+    lap, lbp = np.append(la, 0), np.append(lb, 0)
+    ap[np.arange(lr)[None, :] >= lap[:, None]] = 254
+    bp[np.arange(lc)[None, :] >= lbp[:, None]] = 255
+    la_max = np.repeat(lap.reshape(-1, 2).max(axis=1), 2)
+    lb_max = np.repeat(lbp.reshape(-1, 2).max(axis=1), 2)
+    assert (la_max > lap).any() and (lb_max > lbp).any()
+    got = tsw.sw_scores_reference(*(torch.from_numpy(x) for x in (ap, la_max, bp, lb_max)))
+    np.testing.assert_array_equal(got.numpy()[:p], want)
+    assert got[p] == 0
+
+
 def _sw_rerank_case(data_dir, stride):
     genome = fasta_io.parse_fasta_records(str(data_dir / "ecoli_150.fna"))[0]
     seqs, names = fastq.parse_fastq(str(data_dir / "test_data.fastq"))
