@@ -101,6 +101,18 @@ Phases (any failure raises and the exit code is not 0):
               in fp16); (c) the one-process run of (a) under utils.trace's
               stage and device_trace: the Chrome trace names gru_fwd and
               gru_bwd
+ 15. graft_entry the twin of __graft_entry__.py (graft_entry.py): entry()'s forward on the
+              card against entry(device="cpu") (rule C2, gru_fwd launched);
+              dryrun_multichip(4), four shards on the one card (and at the
+              card count when that is another count above 1): one training
+              step, the sharded search of every engine against its oracle,
+              the sharded fixture SAM, paired and long-read passes
+Phase 6 also builds a PQFLAT at M_pq 64 over 600,000 of its genome's
+windows (fused route; top-1 distance bit for bit the exact scan's on reads
+rescaled under the codebook's scale, and at the reads' own scale the same
+row or distance) and runs pipeline --rerank sw at ref_len 600 on the 200
+kbp genome (the kernel launched); phase 8 builds IVFPQ at M_pq 64 on the fixture and maps
+150 reads (#7) and 4,200 (#8) through the CLI.
 Phase 3 also times the int8 scan at the main path's 2^21-row chunk (its
 results line), holds the four IVF chunk scans against their plain versions
 on a chunked layout of >= 2^21 rows under an 8192-query x nprobe-32 plan
@@ -112,7 +124,11 @@ on edge cases (P 0-3, the two pairs of a register apart in length, lr 512,
 lc > lr in one pass and in two, each G forced) and at the SW rerank's
 launch sizes (5,120 and 17,920 pairs) and 65,536, times it at those three,
 measures the DPX add-max rate its bound divides by, and counts the DPX
-instructions in its SASS.
+instructions in its SASS.  It holds the shapes past the old limits to their
+plain versions bit for bit and times them beside their bounds: pq_winmin at
+m 64 and 128, the IVFPQ scans (#7, #8) at m 2 and 64 on the IVF layout, and
+sw_score at 600 x 150 and 2,000 x 150 (windows against reads: the reads
+become the rows), 600 x 600 and 2,000 x 2,000.
 The last lines are one JSON object of kernel results (time, plain time,
 bound, library time, launches on the main path, and rank 0's launches in
 phase 14 (a)), the nvidia-smi line, and
@@ -145,6 +161,14 @@ SCAN_CHUNK = 1 << 21                # the INT8FLAT main path's chunk (choose_chu
 # one at stride 4 and k_clusters 5 (35 candidates a read); the shape of the
 # first version's table row
 SW_PAIRS = (5120, 17920, 65536)
+# (a width, b width) past the kernel's old 512-byte rows, at SW_PAIRS[0] pairs:
+# windows of ref_len 600 / 2,000 against reads (the wrapper swaps them), and
+# wide rows on both sides (one pass; passes with edges in shared memory)
+SW_WIDE = ((600, 150), (2000, 150), (600, 600), (2000, 2000))
+PQ_M64_ROWS = 600_000               # phase 6's PQFLAT at M_pq 64: >= 2^19 windows
+SW_WIDE_REF_LEN = 600               # phase 6's pipeline --rerank sw past the old 512-byte rows
+PQ_MS = (8, 16, 64, 128)            # phase 3's pq_winmin m: 64 and 128 take 2- and 1-byte entries
+IVF_PQ_MS = (2, 64)                 # phase 3's extra IVFPQ m (the main layout runs m 8)
 GENOME_BP, N_READS, READ_LEN = 2_000_000, 8192, 150
 PQ_GENOME_BP = 5_000_000            # ~10M windows: the README's PQFLAT tier
 SW_TOP1_FLOOR = 0.96                # main path at 5 Mbp (PERF.md section 2)
@@ -672,6 +696,26 @@ def _sw_more_pairs(rng):
     return cases
 
 
+def _sw_wide_pairs(rng, p: int, lr: int, lc: int):
+    """p pairs of random ACGT rows lr and lc wide, the narrower copied into
+    the wider one (1% substitutions) in every second pair, a tenth of the
+    lengths ragged."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    a = acgt[rng.integers(0, 4, (p, lr))]
+    b = acgt[rng.integers(0, 4, (p, lc))]
+    n = min(lr, lc)
+    if lr >= lc:
+        b[::2] = a[::2, lr - lc:]
+    else:
+        a[::2] = b[::2, lc - lr:]
+    mask = rng.random((p, n)) < 0.01
+    (b if lr >= lc else a)[mask] = acgt[rng.integers(0, 4, int(mask.sum()))]
+    la, lb = np.full(p, lr), np.full(p, lc)
+    la[1::10] = rng.integers(0, lr + 1, la[1::10].shape)
+    lb[3::10] = rng.integers(0, lc + 1, lb[3::10].shape)
+    return a, la, b, lb
+
+
 def dpx_rate() -> float:
     """Lane instructions a second of sw_dpx_rate's loop of independent DPX
     add-max instructions (__viaddmax_s16x2_relu) on every scheduler."""
@@ -735,6 +779,31 @@ def check_sw(results: dict):
             f" GCUPS) | plain {t_plain_a:.3f} / {t_plain_b:.3f} ms | bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {SW_OPS_PER_CELL} instructions a "
             f"cell at the measured DPX rate)")
+    wide = {}
+    for lr, lc in SW_WIDE:
+        p = SW_PAIRS[0]
+        a, la, b, lb = (torch.from_numpy(x).to(dev)
+                        for x in _sw_wide_pairs(np.random.default_rng(lr + lc), p, lr, lc))
+        la, lb = la.int(), lb.int()
+        before = kernels.SW_SCORE.launches
+        got = sw.sw_scores(a, la, b, lb)
+        want = sw.sw_scores_reference(a, la, b, lb)  # the rows as given: a, lr wide
+        torch.cuda.synchronize()
+        if kernels.SW_SCORE.launches != before + 1 or not torch.equal(got, want):
+            raise AssertionError(f"sw_score {lr}x{lc}: {int((got != want).sum())} of {p} "
+                                 f"scores differ ({kernels.SW_SCORE.launches - before} "
+                                 "launches)")
+        del got, want
+        cells = float((la.double() * lb.double()).sum())
+        t_kernel = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 10)
+        t_plain = cuda_time(lambda: sw.sw_scores_reference(a, la, b, lb), 1)
+        bd = bound(float(la.sum() + lb.sum()) + 4.0 * 3 * p, SW_OPS_PER_CELL * cells, rate)
+        layout = sw.sw_layout(p, min(lr, lc), max(lr, lc))
+        wide[f"{lr}x{lc}"] = {"ms": t_kernel, "plain_ms": t_plain, **bd, "layout": layout}
+        log(f"[kernels] sw_score {p} pairs of {lr}x{lc} (rows {min(lr, lc)} wide; G, S, "
+            f"passes {layout}): scores exactly equal to the plain version; kernel "
+            f"{t_kernel:.4f} ms ({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | plain "
+            f"{t_plain:.3f} ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     funcs = sass_opcodes(kernels.SW_SCORE.build(), "sw_score_kernel")
     dpx = {strip_name(f): dpx_count(c) for f, c in funcs.items()}
     main_s = f"S={sw.sw_layout(SW_PAIRS[0], READ_LEN, READ_LEN + 2)[1]}"
@@ -747,6 +816,7 @@ def check_sw(results: dict):
                            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                            "library_ms": None,
                            "extra": {"pairs": {str(p): v for p, v in shapes.items()},
+                                     "wide": wide,
                                      "dpx_instructions": dpx[main_s],
                                      "dpx_rate_measured": rate}}
 
@@ -760,8 +830,8 @@ def check_pq(results: dict):
     rng = np.random.default_rng(3)
     q8 = torch.from_numpy(rng.integers(-127, 128, (SCAN_Q, 128), dtype=np.int8)).to(dev)
     ntotal = SCAN_ROWS - 1000  # mask part of the last tile
-    times, worst = {}, 0.0
-    for m in (8, 16):
+    times, worst, by_m = {}, 0.0, {}
+    for m in PQ_MS:
         codes = torch.from_numpy(
             rng.integers(0, 256, (SCAN_ROWS, m), dtype=np.uint8)).to(dev)
         cent8 = torch.from_numpy(
@@ -787,10 +857,14 @@ def check_pq(results: dict):
         t_plain_b = cuda_time(
             lambda: sk.pq_winmin_reference(q8, codes, cent8, SCAN_ROWS, r2), 2)
         tops = 2.0 * SCAN_ROWS * SCAN_Q * 128 / (t_kernel * 1e-3) / 1e12
+        bd = bound(SCAN_ROWS * m + 256 * 128 + SCAN_Q * 128 + (SCAN_ROWS // sk.W) * SCAN_Q * 8,
+                   2.0 * SCAN_ROWS * SCAN_Q * 128, INT8_OPS_S)
         log(f"[kernels] pq_winmin m={m} {SCAN_ROWS} rows x {SCAN_Q} queries, ratio 1.3: "
             f"kernel {t_kernel:.3f} ms ({tops:.1f} int8 TOP/s) | "
-            f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms")
+            f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms | bound {bd['bound_ms']:.3f} ms "
+            f"({bd['bound_by']})")
         times[m] = (t_kernel, (t_plain_a + t_plain_b) / 2)
+        by_m[str(m)] = {"ms": t_kernel, "plain_ms": times[m][1], **bd}
     # tie-heavy: codebook entries in {-1, 0, 1}, 4 a subspace (m 8, nbits 2),
     # every row one of 16 code patterns, so most window minima are shared
     # and only the lowest-row rule decides
@@ -812,7 +886,7 @@ def check_pq(results: dict):
     results["pq_winmin"] = {"max_abs_err": worst, "ms": times[8][0],
                             "plain_ms": times[8][1],
                             **bound(nbytes, 2.0 * SCAN_ROWS * SCAN_Q * 128, INT8_OPS_S),
-                            "library_ms": None}
+                            "library_ms": None, "extra": {"m": by_m}}
 
 
 def _ivf_engines(rng, dev):
@@ -850,6 +924,25 @@ def _ivf_engines(rng, dev):
             IVFPQIndex(pq_codes, cent, row_ids, slab_of, book, n, cap, s, device=dev))
 
 
+def _ivf_pq_engine(eng8, m: int, rng, dev):
+    """An IVFPQ engine at m (nbits 8) over eng8's layout: the same slabs,
+    clusters and row ids, new random codes (in {0, 1} on the tie-heavy
+    slabs) and a random codebook of 128/m-wide entries."""
+    from deepreadmapper_tpu_torch.index.ivf_pq import IVFPQIndex
+    from deepreadmapper_tpu_torch.ops import pq as pq_ops
+    import torch
+
+    slots = np.nonzero(eng8.row_ids >= 0)[0]
+    tie = (slots // eng8.cap) % 2 == 1
+    codes = np.zeros((eng8.row_ids.size, m), np.uint8)
+    codes[slots] = np.where(tie[:, None], rng.integers(0, 2, (slots.size, m)),
+                            rng.integers(0, 256, (slots.size, m)))
+    book = pq_ops.PQCodebook(torch.from_numpy(
+        rng.standard_normal((m, 256, 128 // m)).astype(np.float32) * 0.3).to(dev))
+    return IVFPQIndex(codes, eng8.centroids, eng8.row_ids, eng8.slab_of, book,
+                      eng8.ntotal, eng8.cap, eng8.n_slabs, device=dev)
+
+
 def _hold_equal(tag: str, got, want) -> None:
     """got == want bit for bit (fp32 compared as int32 bit patterns)."""
     import torch
@@ -865,6 +958,7 @@ def check_ivf(results: dict):
     under one plan of 8192 queries x nprobe 32 over >= 2^21 rows."""
     import torch
 
+    from deepreadmapper_tpu_torch import kernels
     from deepreadmapper_tpu_torch.index.ivf_int8 import drop_pad_steps
     from deepreadmapper_tpu_torch.ops import ivf_kernel as ik
 
@@ -938,6 +1032,44 @@ def check_ivf(results: dict):
             f"when each chunk step reads its rows, {step_gb / HBM_BYTES_S * 1e12:.3f} ms)")
         results[name] = {"max_abs_err": 0.0, "ms": t_kernel,
                          "plain_ms": (t_plain_a + t_plain_b) / 2, **b, "library_ms": None}
+    # IVFPQ at m 2 (a subspace of 64 bytes, both in one code word) and 64
+    # (2-byte codebook entries, 16 code planes) on the same plan, packed and
+    # fold, against the plain versions bit for bit
+    r2 = 2.0 * float(np.float32(1.3))
+    for m in IVF_PQ_MS:
+        eng = _ivf_pq_engine(eng8, m, np.random.default_rng(60 + m), dev)
+        (pk_m, cb_m), rn_m = eng._device()[:2]
+        calls = {
+            "ivf_chunk_pq": (
+                lambda: ik.ivf_chunk_scan_pq(sc, sv, qsteps, pk_m, rn_m, cb_m, r2, m),
+                lambda: ik.ivf_chunk_scan_pq_reference(sc, sv, qsteps, pk_m, rn_m, cb_m,
+                                                       r2, m),
+                lambda x: x[vis], visits * ik.QTK * 4 * ik.KP * 4),
+            "ivf_chunk_pq_fold": (
+                lambda: ik.ivf_chunk_scan_pq_fold(sc, sv, qidx, qsteps, pk_m, rn_m, cb_m, r2,
+                                                  m, nq),
+                lambda: ik.ivf_chunk_scan_pq_fold_reference(sc, sv, qidx, qsteps, pk_m,
+                                                            rn_m, cb_m, r2, m, nq),
+                lambda x: x[:nq], rows_out * 2 * ik.FS * ik.KP * 4),
+        }
+        for name, (kernel, plain, part, out_bytes) in calls.items():
+            kc = getattr(kernels, name.upper())
+            before = kc.launches
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if kc.launches != before + 1:
+                raise AssertionError(f"{name} m={m} did not launch its kernel")
+            _hold_equal(f"{name} m={m}", part(got), part(want))
+            del got, want
+            t_kernel = cuda_time(kernel, 3)
+            t_plain = cuda_time(plain, 1)
+            b = _ivf_bound(chunks, steps, visits, -(-m // 4) * 4 + 4, out_bytes)
+            results[name].setdefault("extra", {}).setdefault("m", {})[str(m)] = {
+                "ms": t_kernel, "plain_ms": t_plain, **b}
+            log(f"[kernels] {name} m={m}: packed states / fold rows bit-exact vs plain at "
+                f"ratio 1.3; kernel {t_kernel:.3f} ms | plain {t_plain:.3f} ms | bound "
+                f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+        del eng, pk_m, cb_m, rn_m
     # the fold pass of #6 and #8 alone over the PQ scan's states: the kernel
     # (its index sorted beforehand), then with the index sort as they run it
     r2 = 2.0 * float(np.float32(1.3))
@@ -1300,8 +1432,93 @@ def phase_genome_pq(results: dict):
         raise AssertionError("genome-scale fused PQ scan: kernel != plain version")
     log(f"[genome_pq] fused PQ scan over {codes.shape[0]} rows x 1024 reads: "
         "kernel-driven == plain-driven")
+    del engine, codes, cent8
+    check_pqflat_m64(ref, q)
     check_cpu_size_sw()
     return pqflat
+
+
+def check_pqflat_m64(ref: str, q: np.ndarray):
+    """PQFLAT at M_pq 64 (2-byte codebook entries) over the first
+    PQ_M64_ROWS windows of phase 6's genome, searched with its 8192 reads:
+    the fused route (pq_winmin), its top-1 distance against the exact scan
+    on 1024 reads (bit for bit at query scale ratio 1), and the
+    kernel-driven scan against the plain-driven one."""
+    import torch
+
+    from deepreadmapper_tpu_torch import kernels
+    from deepreadmapper_tpu_torch.config import BuildConfig
+    from deepreadmapper_tpu_torch.index.int8_flat import quantize_host, query_scale_ratio
+    from deepreadmapper_tpu_torch.index.pq_flat import PQFlatIndex
+    from deepreadmapper_tpu_torch.io import fasta as fasta_io
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.ops import scan_kernel as sk
+    from deepreadmapper_tpu_torch.pipeline.build import embed_fasta_windows
+
+    t0 = time.perf_counter()
+    rec = fasta_io.parse_fasta_records(ref)[0][: PQ_M64_ROWS // 2 + READ_LEN - 1]
+    emb = embed_fasta_windows([rec], READ_LEN, 1, Vectorizer())
+    engine = PQFlatIndex.build(emb, BuildConfig(m_pq=64), device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    engine.search(q, 10)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    launches = kernels.counts()
+    log(f"[genome_pq] PQFLAT M_pq 64 over {engine.ntotal} windows: embed + train + encode "
+        f"{t_build:.2f} s; search of {q.shape[0]} reads (k 10) {t_search:.3f} s; launches "
+        f"{launches}")
+    if engine.ntotal < 1 << 19 or launches["pq_winmin"] < 1:
+        raise AssertionError(f"PQFLAT M_pq 64 missed the fused route: {launches}")
+    # one batch for both scans.  Where the reads fit the codebook's scale
+    # (query scale ratio exactly 1) every term of both scans is an exact
+    # integer, so the top-1 distance must be the exact scan's bit for bit
+    # (phase 6's rule at m 8): the reads are rescaled under it for that gate.
+    # At these reads' own ratio (past 1) the two scans round the distance in
+    # other orders (ops/scan_kernel.py vs int8_flat._int8_topk): the top-1
+    # there agrees when its row is the same or its distance is within that
+    # rounding
+    sub = slice(0, 1024)
+    sc = np.float32(engine.cb8.scale)
+    q_fit = q[sub] * np.float32(0.999 * 127.0 * sc / np.max(np.abs(q[sub])))
+    _, ratio_fit = query_scale_ratio(q_fit, sc)
+    kernels.reset_counts()
+    fit_i, fit_d = engine.search(q_fit, 10)
+    fit_launches = kernels.counts()["pq_winmin"]
+    fex_i, fex_d = engine.search(q_fit, 10, exact=True)
+    fit_same = float(np.mean(fit_d[:, 0] == fex_d[:, 0]))
+    log(f"[genome_pq] PQFLAT M_pq 64 fused vs exact scan on the same 1024 reads rescaled "
+        f"under the codebook's scale (query scale ratio {float(ratio_fit)!r}, pq_winmin "
+        f"launches {fit_launches}): the same top-1 distance bit for bit {fit_same:.4f} "
+        f"(need >= 0.99), the same row {float(np.mean(fit_i[:, 0] == fex_i[:, 0])):.4f}")
+    if ratio_fit != 1 or fit_launches < 1 or fit_same < 0.99:
+        raise AssertionError("PQFLAT M_pq 64 at ratio 1: fused top-1 distance is not the "
+                             "exact scan's")
+    sq, ratio = query_scale_ratio(q[sub], sc)
+    sub_i, sub_d = engine.search(q[sub], 10)
+    ex_i, ex_d = engine.search(q[sub], 10, exact=True)
+    same_d = sub_d[:, 0] == ex_d[:, 0]
+    agree = float(np.mean((sub_i[:, 0] == ex_i[:, 0]) | same_d
+                          | (np.abs(sub_d[:, 0] - ex_d[:, 0]) <= 1e-6 * np.abs(ex_d[:, 0]))))
+    log(f"[genome_pq] PQFLAT M_pq 64 fused vs exact scan on the same 1024 reads at their own "
+        f"query scale ratio {float(ratio)!r}: top-1 agrees {agree:.4f} (need >= 0.99; the "
+        f"same distance bit for bit {float(np.mean(same_d)):.4f}, the same row "
+        f"{float(np.mean(sub_i[:, 0] == ex_i[:, 0])):.4f})")
+    if agree < 0.99:
+        raise AssertionError("PQFLAT M_pq 64: fused top-1 disagrees with the exact scan")
+    q8 = torch.from_numpy(quantize_host(q[sub], sq)).cuda()
+    codes, cent8 = engine._device()
+    chunk = sk.choose_chunk(codes.shape[0])
+    kd, ki = sk.fused_scan_topk(q8, codes, engine.ntotal, 128, chunk, ratio=ratio,
+                                cent8=cent8)
+    pd, pi = sk.fused_scan_topk(q8, codes, engine.ntotal, 128, chunk, ratio=ratio,
+                                cent8=cent8, winmin=sk.pq_winmin_reference)
+    if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+        raise AssertionError("PQFLAT M_pq 64 fused scan: kernel != plain version")
+    log(f"[genome_pq] PQFLAT M_pq 64 fused scan over {codes.shape[0]} rows x 1024 reads: "
+        "kernel-driven == plain-driven")
 
 
 def check_cpu_size_sw():
@@ -1309,6 +1526,8 @@ def check_cpu_size_sw():
     at on the CPU, where its search is the exact PQ scan: the port's SW
     rerank of the exact scan's top 10 against the JAX package's top-1, and
     the port's main path (fused scan) beside it."""
+    import torch
+
     from deepreadmapper_tpu_torch import cli
     from deepreadmapper_tpu_torch.index.registry import load_index
     from deepreadmapper_tpu_torch.models.encoder import Vectorizer
@@ -1336,6 +1555,31 @@ def check_cpu_size_sw():
         f"package's recorded CPU reading); the main path (fused scan) {fused_top1:.4f}")
     if hits < JAX_SW_TOP1_READS:
         raise AssertionError(f"CPU-size SW top-1 {hits} < {JAX_SW_TOP1_READS} reads")
+
+    # windows of SW_WIDE_REF_LEN bytes: the SW rerank scores 600 x 152 pairs,
+    # the reads as the kernel's rows
+    from deepreadmapper_tpu_torch import kernels
+
+    idx600, out600 = os.path.join(work, "idx600"), os.path.join(work, "out600")
+    if cli.main(["build-index", ref, idx600, str(SW_WIDE_REF_LEN)]) != 0:
+        raise AssertionError(f"build-index at ref_len {SW_WIDE_REF_LEN} failed")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["pipeline", idx600, fq, ref, "128", "10", "128", out600, "--rerank", "sw"])
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    launches = kernels.counts()
+    top = np.load(os.path.join(out600, "indices.npy")).astype(np.int64)[:, 0]
+    inside = float(np.mean(((top >> 1) <= starts) & (starts + READ_LEN <= (top >> 1)
+                                                       + SW_WIDE_REF_LEN)
+                           & ((top & 1) == strands)))
+    log(f"[cpu_size] pipeline --rerank sw at ref_len {SW_WIDE_REF_LEN}: {t_pipe:.2f} s, "
+        f"launches {launches}; top-1 window holds the read for {inside:.4f} of reads "
+        "(need >= 0.95)")
+    if rc != 0 or launches["sw_score"] < 1:
+        raise AssertionError(f"--rerank sw at ref_len {SW_WIDE_REF_LEN}: rc {rc}, {launches}")
+    if inside < 0.95:
+        raise AssertionError(f"ref_len {SW_WIDE_REF_LEN} SW top-1 holds the read for {inside}")
 
 
 def _top1(ids: np.ndarray, starts: np.ndarray, strands: np.ndarray) -> float:
@@ -1570,6 +1814,46 @@ def phase_genome_ivfpq(results: dict, pqflat: dict):
         f"of cap {engine.cap}, {engine._chunk_meta()[2]} chunks")
     _ivf_routes("genome_ivfpq", engine, q, "ivf_chunk_pq", "ivf_chunk_pq_fold", results,
                 4 * -(-engine.codes_cm.shape[1] // 4) + 4)
+    del engine
+    check_ivfpq_m64_cli()
+
+
+def check_ivfpq_m64_cli():
+    """build-index --index-type IVFPQ at M_pq 64 -> pipeline on the fixture:
+    its 150 reads (the device plan, packed scan #7) and the same reads 28
+    times over (4,200 reads: the host plan's fold route, #8)."""
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, kernels
+
+    work = os.path.join(WORK, "ivfpq_m64")
+    os.makedirs(work, exist_ok=True)
+    fna, fq = os.path.join(FIXTURE, "ecoli_150.fna"), os.path.join(FIXTURE, "test_data.fastq")
+    idx = os.path.join(work, "idx")
+    if cli.main(["build-index", fna, idx, str(READ_LEN), "1", "64", "--index-type",
+                 "IVFPQ"]) != 0:
+        raise AssertionError("IVFPQ M_pq 64 build-index failed")
+    with open(fq) as f:
+        text = f.read()
+    names = text.splitlines()[0::4]
+    tiled = os.path.join(work, "reads_x28.fastq")
+    with open(tiled, "w") as f:
+        f.write(text * 28)
+    for tag, reads, kernel in (("150 reads", fq, "ivf_chunk_pq"),
+                               ("4,200 reads", tiled, "ivf_chunk_pq_fold")):
+        out = os.path.join(work, f"out_{kernel}")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["pipeline", idx, reads, fna, "16", "128", "128", out, "--no-sam"])
+        torch.cuda.synchronize()
+        t_pipe = time.perf_counter() - t0
+        launches = kernels.counts()
+        hits = truth_hits(np.load(os.path.join(out, "indices.npy"))[:150], names, 2)
+        log(f"[genome_ivfpq] IVFPQ M_pq 64 on the fixture, {tag} at nprobe 16: {t_pipe:.2f} s, "
+            f"launches {launches}; truth hits {hits}/150 (need >= 135)")
+        if rc != 0 or launches[kernel] < 1 or hits < 135:
+            raise AssertionError(f"IVFPQ M_pq 64 pipeline ({tag}): rc {rc}, hits {hits}, "
+                                 f"{launches}")
 
 
 _STEP_GROUPS = (  # kernel-name fragment -> part of a training step
@@ -3273,6 +3557,45 @@ def phase_finetune_dp(results: dict, genome: dict, smi: str):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def phase_graft_entry():
+    """__graft_entry__.py's twin on the card: entry()'s forward against the same
+    forward on the CPU (rule C2), and dryrun_multichip(4) with its four
+    shards on the one card (and at the card count when that is another
+    count above 1), each with its launches."""
+    import torch
+
+    from deepreadmapper_tpu_torch import graft_entry, kernels
+
+    fwd, (tokens,) = graft_entry.entry()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    got = fwd(tokens)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    launches = kernels.counts()
+    cfwd, (ctokens,) = graft_entry.entry(device="cpu")
+    want = cfwd(ctokens)
+    err = float((got.cpu() - want).abs().max())
+    log(f"[graft_entry] entry(): {tuple(got.shape)} {got.dtype} on {got.device} in "
+        f"{t_fwd * 1e3:.1f} ms (first call); max abs diff from entry(device='cpu') "
+        f"{err:.2e} (rtol 1e-4, atol 1e-4); launches {launches}")
+    if (tuple(got.shape) != (256, 128) or not bool(torch.isfinite(got).all())
+            or launches["gru_fwd"] < 1):
+        raise AssertionError(f"entry() forward: {tuple(got.shape)}, launches {launches}")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    counts = [4] + [n for n in (torch.cuda.device_count(),) if n > 1 and n != 4]
+    for n in counts:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        readings = graft_entry.dryrun_multichip(n)
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        log(f"[graft_entry] dryrun_multichip({n}) in {time.perf_counter() - t0:.1f} s: "
+            f"{json.dumps(readings)}; launches {launches}")
+        if min(launches["gru_fwd"], launches["gru_bwd"]) < 1:
+            raise AssertionError(f"dryrun_multichip({n}) missed a kernel: {launches}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = phase_device()
@@ -3323,6 +3646,10 @@ def main() -> int:
     t14 = time.perf_counter()
     phase_finetune_dp(results, genome, smi)
     log(f"[time] phase 14 (finetune_dp) in {time.perf_counter() - t14:.1f} s; phases 1-14 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t15 = time.perf_counter()
+    phase_graft_entry()
+    log(f"[time] phase 15 (graft_entry) in {time.perf_counter() - t15:.1f} s; phases 1-15 in "
         f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     if "jax" in sys.modules:

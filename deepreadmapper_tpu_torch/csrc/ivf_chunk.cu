@@ -273,16 +273,17 @@ pq_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfirs
                const int* __restrict__ packed, const float* __restrict__ rn,
                const int8_t* __restrict__ cent, float* __restrict__ out, float ratio2,
                int ksub) {
+  static_assert(M >= 1 && M <= D && D % M == 0, "m divides 128");
   constexpr int MP = (M + 3) / 4;     // code words (planes) a row
-  constexpr int DW = 32 / M;          // codebook words an entry
-  constexpr int JH = M / 2;           // subspaces a half row
-  static_assert(MP * KP / 4 <= THREADS, "one codes copy a thread and slab");
+  constexpr int DSUB = D / M;         // codebook bytes an entry
+  constexpr int JH = M / 2;           // subspaces a half row (0 at M = 1: one spans both)
+  constexpr int CODE_COPIES = MP * KP / 4;  // 16-byte codes copies a slab
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* slabs = smem;                                         // [2][KP][PITCH]
   uint2* bqs = reinterpret_cast<uint2*>(smem + 2 * SLAB_BYTES);         // [NT][KS][32]
   float* rns = reinterpret_cast<float*>(smem + 2 * SLAB_BYTES + BQ_BYTES);  // [NBUF][KP]
   int* cds = reinterpret_cast<int*>(smem + PQ_FIXED);                  // [NBUF][MP][KP]
-  int* cb = reinterpret_cast<int*>(smem + PQ_FIXED + pq_codes_bytes<M>());  // [M ksub][DW]
+  const unsigned char* cb = smem + PQ_FIXED + pq_codes_bytes<M>();     // [M ksub][DSUB]
 
   const int visit = blockIdx.x;
   const int first = vfirst[visit];
@@ -296,10 +297,15 @@ pq_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfirs
     if (i < total) {
       const int chunk = __ldg(step_chunk + first + i / SLABS);
       const int off = (i % SLABS) * KP, slot = i % NBUF;
-      if (tid < MP * KP / 4) {
-        const int p = tid / (KP / 4), c = tid % (KP / 4);
+      auto copy = [&](int e) {
+        const int p = e / (KP / 4), c = e % (KP / 4);
         cp_async16(cds_s + ((slot * MP + p) * KP + 4 * c) * 4,
                    packed + ((size_t)chunk * MP + p) * CHK + off + 4 * c);
+      };
+      if constexpr (CODE_COPIES <= THREADS) {
+        if (tid < CODE_COPIES) copy(tid);
+      } else {  // m 64, 128: 16 or 32 planes
+        for (int e = tid; e < CODE_COPIES; e += THREADS) copy(e);
       }
       if (tid >= THREADS - KP / 4) {
         const int c = tid - (THREADS - KP / 4);
@@ -310,35 +316,63 @@ pq_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfirs
   };
 
   // Rebuild slab i into buffer i & 1: thread tid writes bytes 64h .. 64h+63
-  // (subspaces JH h .. JH h + JH - 1) of row r as four 16-byte stores.
+  // (subspaces JH h .. JH h + JH - 1; at M = 1 half h of the one entry) of
+  // row r as four 16-byte stores.
   const int r = tid >> 1, h = tid & 1;
-  const int* cbh = cb + h * JH * ksub * DW;
+  const unsigned char* cbh = cb + h * JH * ksub * DSUB;  // the half's first entry
   auto rebuild = [&](int i) {
     const int* rc = cds + (i % NBUF) * MP * KP + r;
-    unsigned words[(JH + 3) / 4];  // the half's codes, subspace jj in byte jj % 4 of word jj / 4
-    if constexpr (M == 4) {
-      words[0] = static_cast<unsigned>(rc[0]) >> (16 * h);
-    } else {
-#pragma unroll
-      for (int u = 0; u < (JH + 3) / 4; ++u) words[u] = rc[(h * (JH / 4) + u) * KP];
-    }
-    auto entry = [&](int jj) {  // the half's subspace jj: its entry's first word
-      return cbh + (jj * ksub + ((words[jj / 4] >> (8 * (jj % 4))) & 255)) * DW;
-    };
     int4* dst = reinterpret_cast<int4*>(slabs + ((i & 1) * KP + r) * PITCH + 64 * h);
+    if constexpr (M == 1) {  // one 128-byte entry: this half's 64 bytes of it
+      const int4* e = reinterpret_cast<const int4*>(cb + (rc[0] & 255) * D + 64 * h);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int4 v;
-      if constexpr (DW >= 4) {  // the piece lies in one entry
-        v = *reinterpret_cast<const int4*>(entry(4 * c / DW) + (4 * c) % DW);
-      } else if constexpr (DW == 2) {
-        const int2 lo = *reinterpret_cast<const int2*>(entry(2 * c));
-        const int2 hi = *reinterpret_cast<const int2*>(entry(2 * c + 1));
-        v = make_int4(lo.x, lo.y, hi.x, hi.y);
+      for (int c = 0; c < 4; ++c) dst[c] = e[c];
+    } else {
+      constexpr int NW = (JH + 3) / 4;
+      unsigned words[NW];  // the half's codes, subspace jj in byte jj % 4 of word jj / 4
+      if constexpr (JH < 4) {  // M 2, 4: both halves' codes in word 0
+        words[0] = static_cast<unsigned>(rc[0]) >> (8 * JH * h);
       } else {
-        v = make_int4(*entry(4 * c), *entry(4 * c + 1), *entry(4 * c + 2), *entry(4 * c + 3));
+#pragma unroll
+        for (int u = 0; u < NW; ++u) words[u] = rc[(h * NW + u) * KP];
       }
-      dst[c] = v;
+      // the half's subspace jj: its entry's first byte
+      auto entry = [&](int jj) {
+        return cbh + (jj * ksub + ((words[jj / 4] >> (8 * (jj % 4))) & 255)) * DSUB;
+      };
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        int4 v;
+        if constexpr (DSUB >= 16) {  // the piece lies in one entry
+          v = *reinterpret_cast<const int4*>(entry(16 * c / DSUB) + (16 * c) % DSUB);
+        } else if constexpr (DSUB == 8) {
+          const int2 lo = *reinterpret_cast<const int2*>(entry(2 * c));
+          const int2 hi = *reinterpret_cast<const int2*>(entry(2 * c + 1));
+          v = make_int4(lo.x, lo.y, hi.x, hi.y);
+        } else if constexpr (DSUB == 4) {
+          v = make_int4(*reinterpret_cast<const int*>(entry(4 * c)),
+                        *reinterpret_cast<const int*>(entry(4 * c + 1)),
+                        *reinterpret_cast<const int*>(entry(4 * c + 2)),
+                        *reinterpret_cast<const int*>(entry(4 * c + 3)));
+        } else {  // DSUB 2 or 1: an entry is part of a word
+          constexpr int PER = 4 / DSUB;  // entries a word
+          int w[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            unsigned x = 0;
+#pragma unroll
+            for (int e = 0; e < PER; ++e) {
+              const unsigned char* p = entry((4 * c + k) * PER + e);
+              const unsigned piece =
+                  DSUB == 2 ? *reinterpret_cast<const unsigned short*>(p) : *p;
+              x |= piece << (8 * DSUB * e);
+            }
+            w[k] = static_cast<int>(x);
+          }
+          v = make_int4(w[0], w[1], w[2], w[3]);
+        }
+        dst[c] = v;
+      }
     }
   };
 
@@ -346,7 +380,7 @@ pq_scan_kernel(const int* __restrict__ step_chunk, const int* __restrict__ vfirs
   L.reset();
   if (total > 0) {
     {  // the codebook, in the first slab's copy group
-      const unsigned cb_s = smem_addr(cb);
+      const unsigned cb_s = smem_addr(smem + PQ_FIXED + pq_codes_bytes<M>());
       for (int e = tid; e < ksub * (D / 16); e += THREADS) cp_async16(cb_s + 16 * e, cent + 16 * e);
     }
 #pragma unroll
@@ -383,7 +417,7 @@ size_t pq_smem(int ksub) {
   const size_t scan = PQ_FIXED + pq_codes_bytes<M>() + (size_t)ksub * D;
   return scan > STG_BYTES ? scan : STG_BYTES;
 }
-static_assert(PQ_FIXED + pq_codes_bytes<32>() + 256 * D <= 227 * 1024, "shared memory");
+static_assert(PQ_FIXED + pq_codes_bytes<128>() + 256 * D <= 227 * 1024, "shared memory");
 
 template <int M>
 int launch_pq_m(const int* sc, const int* vf, const int* vc, const int8_t* q, const int* pk,
@@ -458,10 +492,14 @@ int launch_pq(const void* step_chunk, const void* vfirst, const void* vcount,
   const auto c = static_cast<const int8_t*>(cent);
   const auto o = static_cast<float*>(out);
   switch (m) {
+    case 1: return launch_pq_m<1>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
+    case 2: return launch_pq_m<2>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
     case 4: return launch_pq_m<4>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
     case 8: return launch_pq_m<8>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
     case 16: return launch_pq_m<16>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
     case 32: return launch_pq_m<32>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
+    case 64: return launch_pq_m<64>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
+    case 128: return launch_pq_m<128>(sc, vf, vc, q, pk, r, c, o, n_visits, ratio2, ksub, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -514,7 +552,7 @@ extern "C" int ivf_chunk_int8_fold(const void* step_chunk, const void* vfirst,
 }
 
 // packed [n_chunks, ceil(m / 4), 2048] int32, cent [m * ksub, 128 / m] int8
-// (m in 4, 8, 16, 32; ksub <= 256), packed, rn and cent 16-byte aligned;
+// (m dividing 128; ksub <= 256), packed, rn and cent 16-byte aligned;
 // the rest as ivf_chunk_int8.
 extern "C" int ivf_chunk_pq(const void* step_chunk, const void* vfirst, const void* vcount,
                             const void* qsteps, const void* packed, const void* rn,

@@ -7,7 +7,8 @@
 //
 // What bounds it on an H100: instruction issue.  The DP has no tensor-core
 // form and reads only the pairs' bytes.  Every value fits in 16 bits (a
-// score is at most min(la, lb) <= 512 and the relu floor keeps cells >= 0),
+// score is at most min(la, lb), which ops/sw.py keeps below 2^15, and the
+// relu floor keeps cells >= 0),
 // so Hopper's DPX instructions carry two pairs in each register, one in
 // each 16-bit half, and a pair of cells costs 5.5 instructions:
 //   z    = A ^ B[k]                  A = ~2a, B = 2b: -1 on a match, <= -3 else

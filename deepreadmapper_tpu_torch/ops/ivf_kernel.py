@@ -317,10 +317,10 @@ def _check_pq(packedC, cent2d, m: int):
         raise TypeError(f"packedC int32 and cent2d int8 expected, got "
                         f"{packedC.dtype}, {cent2d.dtype}")
     ksub = cent2d.shape[0] // max(m, 1)
-    if (m not in (4, 8, 16, 32) or cent2d.dim() != 2 or cent2d.shape[0] != m * ksub
+    if (m < 1 or D % m or cent2d.dim() != 2 or cent2d.shape[0] != m * ksub
             or cent2d.shape[1] * m != D or ksub > 256):
-        raise ValueError(f"m={m} and cent2d {tuple(cent2d.shape)}: need m in "
-                         f"(4, 8, 16, 32), cent2d [m*ksub, {D}/m], ksub <= 256")
+        raise ValueError(f"m={m} and cent2d {tuple(cent2d.shape)}: need m dividing "
+                         f"{D}, cent2d [m*ksub, {D}/m], ksub <= 256")
     if packedC.dim() != 3 or packedC.shape[1] != -(-m // 4) or packedC.shape[2] != CHK:
         raise ValueError(f"packedC must be [n_chunks, {-(-m // 4)}, {CHK}], "
                          f"got {tuple(packedC.shape)}")

@@ -196,8 +196,6 @@ def pq_winmin(q8, codes, cent8, ntotal: int, ratio2: float, w: int = W):
         raise ValueError(f"unsupported device {q8.device}")
     if qp % _KQ:
         raise ValueError(f"pq_winmin kernel needs Qp % {_KQ} == 0, got {qp}")
-    if dsub % 4:
-        raise ValueError(f"pq_winmin kernel needs 128/m a multiple of 4, got m={m}")
     nwin = np_ // w
     if -(-nwin // _KWPB) > 65535:
         raise ValueError(f"pq_winmin grid too large for Np={np_}, w={w}")

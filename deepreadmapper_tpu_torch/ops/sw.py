@@ -10,8 +10,14 @@ in ``b``) that never match, so cells outside the true region stay below the
 running max and the padded DP equals the true-length DP.  The two sentinel
 values are reserved, as in the JAX package.
 
-:func:`sw_scores` runs ``csrc/sw_score.cu`` on CUDA tensors and the plain
-wavefront :func:`sw_scores_reference` on CPU tensors.
+The score is symmetric in a and b, so :func:`sw_scores` puts the narrower
+side in the rows (``a``) and the wider one in the columns: the kernel keeps
+the rows in shared memory and walks the columns in passes.  It runs
+``csrc/sw_score.cu`` on CUDA tensors and the plain wavefront
+:func:`sw_scores_reference` on CPU tensors.  On the card it raises for
+pairs whose narrower side is wider than the kernel holds
+(:func:`kernel_holds`: past 4,842 bytes both sides), which no read-window
+pair reaches.
 """
 
 from __future__ import annotations
@@ -23,7 +29,10 @@ from deepreadmapper_tpu_torch import kernels
 _PAD_A = 254
 _PAD_B = 255
 
-_MAX_LR = 512   # longest a row the kernel takes (a score, at most lr, fits its 16-bit halves)
+# A score is at most the narrower width, and no DP value the kernel forms
+# exceeds the score (a match adds 2 to H - 1), so the kernel's signed 16-bit
+# halves hold rows up to this width; shared memory holds fewer (kernel_holds)
+_MAX_LR = 32767
 _THREADS = 128  # lanes a block (csrc/sw_score.cu THREADS)
 # columns a lane holds in registers: the kernel's instantiations of S
 _STRIPS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32, 40)
@@ -81,6 +90,27 @@ def sw_scores_reference(a_mat, a_lens, b_mat, b_lens, chunk: int = 8192):
     return out
 
 
+def _passes(lc: int, g: int) -> int:
+    """Passes over lc columns at G = g: a lane holds at most 40 a pass."""
+    per_lane = -(-lc // g)
+    return -(-per_lane // _STRIPS[-1])
+
+
+def _smem_bytes(lr: int, lc: int, g: int) -> int:
+    """Shared memory of a launch at G = g: the A words of 128 / g groups,
+    and with more than one pass their right edges (two words a row)."""
+    ng = _THREADS // g
+    return 4 * (ng * (lr | 1) + (2 * ng * lr if _passes(lc, g) > 1 else 0))
+
+
+def kernel_holds(lr: int, lc: int) -> bool:
+    """Whether the kernel takes rows lr wide against columns lc wide (lr <=
+    lc, as sw_scores orders them): the score fits its 16-bit halves and
+    the rows fit shared memory at G = 32.  Past a narrower side of 4,842
+    bytes (1,280 < lc) they do not."""
+    return lr <= _MAX_LR and _smem_bytes(lr, max(lc, 1), 32) <= _SMEM
+
+
 def sw_layout(p: int, lr: int, lc: int, group: int | None = None) -> tuple[int, int, int]:
     """How csrc/sw_score.cu splits a launch of p pairs of widths lr x lc:
     (G, S, passes).  A group of G lanes shares two pairs; each lane holds S
@@ -88,12 +118,15 @@ def sw_layout(p: int, lr: int, lc: int, group: int | None = None) -> tuple[int, 
     `passes` passes (more than one only when lc > 32 x 40).  G is the
     smallest power of two that gives the launch 4 warps a scheduler of the
     card where p allows, and no smaller than the registers (S <= 40) and the
-    shared memory (the A words of 128 / G groups) need, and no more lanes
-    than lc has columns.  `group` forces G (tests)."""
+    shared memory (the A words of 128 / G groups, and their right edges
+    between passes) need, and no more lanes than lc has columns.  `group`
+    forces G (tests)."""
     lc = max(lc, 1)
+    if not kernel_holds(lr, lc):
+        raise ValueError(f"sw_score kernel does not hold rows {lr} wide against {lc}")
     g_min = 1
     while g_min < 32 and (-(-lc // g_min) > _STRIPS[-1]
-                          or 4 * (_THREADS // g_min) * (lr | 1) > _SMEM):
+                          or _smem_bytes(lr, lc, g_min) > _SMEM):
         g_min *= 2
     if group is None:
         g, g_max = g_min, max(g_min, min(32, 1 << (lc.bit_length() - 1)))
@@ -105,7 +138,7 @@ def sw_layout(p: int, lr: int, lc: int, group: int | None = None) -> tuple[int, 
         raise ValueError(f"sw_score takes G a power of two in [{g_min}, 32] at "
                          f"lr {lr}, lc {lc}, got {group}")
     per_lane = -(-lc // g)
-    passes = -(-per_lane // _STRIPS[-1])
+    passes = _passes(lc, g)
     s = next(x for x in _STRIPS if x * passes >= per_lane)
     return g, s, passes
 
@@ -114,8 +147,10 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
               b_lens: torch.Tensor, group: int | None = None) -> torch.Tensor:
     """Batched SW scores: csrc/sw_score.cu on CUDA tensors, the plain version
     on CPU tensors.  a_mat [P, lr] / b_mat [P, lc] uint8, lengths [P] (any
-    integer type; clipped to [0, width]) -> int32 [P].  The kernel reads no
-    byte past a row's length: it takes the sentinels there itself.  `group`
+    integer type; clipped to [0, width]) -> int32 [P].  The narrower side
+    becomes the rows (the score is symmetric); on the card, past what the
+    kernel holds (:func:`kernel_holds`) it raises ValueError.  The kernel reads no byte
+    past a row's length: it takes the sentinels there itself.  `group`
     forces the kernel's G (tests; see :func:`sw_layout`)."""
     if a_mat.dtype != torch.uint8 or b_mat.dtype != torch.uint8:
         raise TypeError(f"sw_scores takes uint8 bytes, got {a_mat.dtype}, {b_mat.dtype}")
@@ -130,13 +165,13 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
     dev = a_mat.device
     if b_mat.device != dev:
         raise ValueError(f"a_mat on {dev}, b_mat on {b_mat.device}")
+    if a_mat.shape[1] > b_mat.shape[1]:
+        a_mat, a_lens, b_mat, b_lens = b_mat, b_lens, a_mat, a_lens
     if dev.type == "cpu":
         return sw_scores_reference(a_mat, a_lens, b_mat, b_lens)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lr, lc = a_mat.shape[1], b_mat.shape[1]
-    if lr > _MAX_LR:
-        raise ValueError(f"sw_score kernel holds a rows up to {_MAX_LR} bytes, got {lr}")
     g, strip, passes = sw_layout(p, lr, lc, group)
     out = torch.empty(p, dtype=torch.int32, device=dev)
     if p == 0:

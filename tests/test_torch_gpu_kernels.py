@@ -209,6 +209,38 @@ def test_sw_kernel_lc_above_lr(cuda, lc):
     assert int(got[0]) == 100
 
 
+@pytest.mark.parametrize("lr,lc", [(600, 150), (2000, 150), (600, 600), (2000, 2000),
+                                   (4842, 5000)])
+def test_sw_kernel_wide_rows(cuda, lr, lc):
+    """Rows past the old 512-byte cap: wide a rows against reads (the
+    wrapper makes the reads the rows), and wide rows on both sides (one
+    pass, and passes with their edges in shared memory); a read planted in
+    every second window scores its length."""
+    rng = np.random.default_rng(lr + lc)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    p, n = 33, min(lr, lc) // 2
+    a = acgt[rng.integers(0, 4, (p, lr))]
+    b = acgt[rng.integers(0, 4, (p, lc))]
+    b[::2, lc - n:] = a[::2, lr - n:]
+    la, lb = np.full(p, lr), np.full(p, lc)
+    la[1::4], lb[3::4] = rng.integers(0, lr + 1, la[1::4].shape), 0
+    got = _sw_check(cuda, a, la, b, lb)
+    assert (got[::2].cpu().numpy() >= n).all()
+
+
+def test_sw_raises_past_the_kernel(cuda):
+    """Both sides past 4,842 bytes: no launch and no plain route on the
+    card, a ValueError before any launch."""
+    rng = np.random.default_rng(3)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    a = torch.tensor(acgt[rng.integers(0, 4, (3, 4900))]).to(cuda)
+    n = torch.full((3,), 4900, device=cuda)
+    before = kernels.SW_SCORE.launches
+    with pytest.raises(ValueError, match="does not hold"):
+        sw.sw_scores(a, n, a.clone(), n)
+    assert kernels.SW_SCORE.launches == before
+
+
 @pytest.mark.parametrize("p", [5120, 17920, 65536])
 def test_sw_kernel_main_path_shapes(cuda, p):
     """The SW rerank's launches at stride 1 / k_clusters 10 and stride 4 /
@@ -219,8 +251,9 @@ def test_sw_kernel_main_path_shapes(cuda, p):
 @pytest.mark.parametrize("group,lc", [(1, 40), (2, 40), (4, 152), (8, 152), (16, 152),
                                       (32, 152)])
 def test_sw_kernel_each_group(cuda, group, lc):
+    # rows no wider than the lc columns, so the wrapper keeps a as the rows
     a, la, b, lb = _sw_pairs(999, seed=group)
-    _sw_check(cuda, a, la, b[:, :lc], lb.clamp(max=lc), group=group)
+    _sw_check(cuda, a[:, :lc], la.clamp(max=lc), b[:, :lc], lb.clamp(max=lc), group=group)
 
 
 def _pq_tie_book(rng, np_):
@@ -241,7 +274,8 @@ PQ_LAYOUTS = {"8192x640": (8192, 640, 128, 8192 - 333), "one block": (128, 128, 
 
 
 @pytest.mark.parametrize("layout", list(PQ_LAYOUTS))
-@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (4, 8), (8, 6), (8, "ties")])
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (4, 8), (8, 6), (8, "ties"),
+                                     (1, 8), (2, 8), (32, 8), (64, 8), (128, 8), (64, 6)])
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
 def test_pq_winmin_kernel_matches_plain(cuda, m, nbits, ratio, layout):
     np_, qp, w, ntotal = PQ_LAYOUTS[layout]
@@ -478,7 +512,8 @@ def _pq_tables(rng, m, nbits, rn, codes, cuda):
 
 @pytest.mark.parametrize("plan", list(IVF_PLANS))
 @pytest.mark.parametrize("codes", ["random", "ties"])
-@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8), (32, 8), (32, 6)])
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8), (32, 8), (32, 6),
+                                     (1, 8), (2, 8), (64, 8), (128, 8), (128, 6)])
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
 def test_ivf_chunk_pq_kernels_match_plain(cuda, m, nbits, ratio, codes, plan):
     """Packed and fold, bit for bit against the plain versions, at every m;

@@ -86,11 +86,14 @@ def test_host_helpers_match_jax():
 
 
 @pytest.mark.parametrize("ratio", [1.0, 1.3])
-@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8)])
+@pytest.mark.parametrize("m,nbits", [(8, 8), (16, 8), (8, 6), (4, 8), (1, 8), (2, 8),
+                                     (64, 8), (128, 8)])
 @pytest.mark.parametrize("mode", ["packed", "fold"])
 def test_pq_scan_matches_jax_interpret(mode, m, nbits, ratio):
     """Multi-chunk visits and padding rows (code 0, a real codebook row,
-    under a 3.4e38 norm); exact."""
+    under a 3.4e38 norm); exact.  Every m that divides 128: one subspace
+    spanning both half rows (1), codebook entries of 2 and 1 bytes (64,
+    128)."""
     nq = 60
     je, te = pq_layout(m, nbits, seed=m + nbits)
     rng = np.random.default_rng(3)
@@ -307,6 +310,32 @@ def test_search_matches_jax_on_one_saved_index(saved_indexes, built_by, opq, mon
         ti, td = te.search(q, 64, ef=8)
         np.testing.assert_array_equal(ti, ji)
         np.testing.assert_array_equal(td, jd)
+
+
+@pytest.mark.parametrize("route", ["packed", "fold"])
+@pytest.mark.parametrize("m", [2, 64])
+def test_search_at_every_m_pq_matches_jax(m, route, monkeypatch, tmp_path):
+    """IVFPQ at M_pq outside 4-32 (the scans once took only those): one
+    index built by the port, loaded by both packages, searched on the
+    packed and the fold route; ids and distances equal."""
+    x = clustered(n=3000)
+    d = str(tmp_path / "ivfpq")
+    tivfpq.IVFPQIndex.build(x, BuildConfig(nlist=8, m_pq=m, kmeans_iters=4),
+                            device=CPU).save(d)
+    monkeypatch.setattr(jik, "INTERPRET", True)
+    je = jivfpq.IVFPQIndex.load(d)
+    te = tivfpq.IVFPQIndex.load(d, device=CPU)
+    assert te.codebook.m == je.codebook.m == m
+    fused, fold = ROUTES[route]
+    for cls in (jivfpq.IVFPQIndex, tivfpq.IVFPQIndex):
+        monkeypatch.setattr(cls, "_FUSED_MAX_PAIRS", fused)
+        monkeypatch.setattr(cls, "_FOLD_MIN_Q", fold)
+    je._fns.clear()
+    q = x[::100][:30] + np.float32(0.01)
+    ji, jd = je.search(q, 32, ef=4)
+    ti, td = te.search(q, 32, ef=4)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
 
 
 def test_full_probe_matches_pqflat_exact():

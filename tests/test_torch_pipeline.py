@@ -89,7 +89,8 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
     --paired2, --long-reads --cigar, HNSWPQ at stride 4, HNSWFLAT
     --build-mode knn --level-mode centroid, IVFINT8 --shards 2, info,
     finetune --distributed in one process under utils.trace's stage and
-    device_trace) with serve, bench, io.bam, io.npy_stream, ops.pack,
+    device_trace, graft_entry's entry) with graft_entry's dry run's modules,
+    serve, bench, io.bam, io.npy_stream, ops.pack,
     models.ir_loader, io.idmap and utils.logging imported, then assert that
     neither jax nor any module of the JAX package was imported."""
     code = (
@@ -144,6 +145,11 @@ def test_port_cli_never_imports_jax(data_dir, tmp_path):
         "assert cli.main(['pipeline', d + '/sh', fq, fna, '16', '8', '5', d + '/sh_out',"
         " *dev]) == 0\n"
         "assert cli.main(['info', d + '/idx']) == 0\n"
+        "from deepreadmapper_tpu_torch import graft_entry\n"
+        "fwd, (tok,) = graft_entry.entry(device='cpu')\n"
+        "assert tuple(fwd(tok).shape) == (256, 128)\n"
+        "import deepreadmapper_tpu_torch.parallel.sharded_search\n"
+        "import deepreadmapper_tpu_torch.parallel.train, deepreadmapper_tpu_torch.ops.topk\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = sorted(m for m in sys.modules if m == 'deepreadmapper_tpu'"
         " or m.startswith('deepreadmapper_tpu.'))\n"

@@ -20,13 +20,17 @@ from deepreadmapper_tpu.index import pq_flat as jpqf
 from deepreadmapper_tpu.ops import pq as jpq
 from deepreadmapper_tpu.ops import scan_kernel as jsk
 from deepreadmapper_tpu_torch import kernels
+from deepreadmapper_tpu_torch.config import BuildConfig as TBuildConfig
 from deepreadmapper_tpu_torch.index import pq_flat as tpqf
+from deepreadmapper_tpu_torch.index.int8_flat import query_scale_ratio, search_quantized
 from deepreadmapper_tpu_torch.index.registry import load_index
 from deepreadmapper_tpu_torch.ops import pq as tpq
 from deepreadmapper_tpu_torch.ops import scan_kernel as tsk
 
 RATIOS = [1.0, 1.3]
 MN = [(8, 8), (16, 8), (4, 8), (8, 6)]
+# the fused scan at every m that divides 128: 2- and 1-byte codebook entries
+MN_SCAN = MN + [(64, 8), (128, 8)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -153,7 +157,7 @@ def _jax_pq_args(q8, codes, cent8):
     return qt_b, codes_t, cent2d
 
 
-@pytest.mark.parametrize("m,nbits", MN)
+@pytest.mark.parametrize("m,nbits", MN_SCAN)
 @pytest.mark.parametrize("ratio", RATIOS)
 def test_pq_winmin_reference_matches_pallas(m, nbits, ratio):
     codes, cent8, q8 = _pq_case(m, nbits)
@@ -264,6 +268,35 @@ def test_pqflat_exact_search_matches_jax(tmp_path, opq, query_scale):
     small = tpqf.PQFlatIndex(jidx.codes[:10], tidx.codebook, 10, tidx.rot, device="cpu")
     si, sd = small.search(q[:3], 16)
     assert (si[:, 10:] == -1).all() and np.isinf(sd[:, 10:]).all()
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_pqflat_fused_top1_distance_is_the_exact_scans_at_ratio_one(m):
+    """PQFLAT's fused route (pq_winmin's plain version on the CPU) and its
+    exact scan score the same int8 rows.  Where the queries fit the
+    codebook's scale (query scale ratio exactly 1) every term is an exact
+    integer, so the top-1 distances are equal bit for bit; chip_smoke.py
+    phase 6 holds the card to this at M_pq 64.  Past that scale each scan
+    rounds once, in its own order (at ratio 1.01 a third of these top-1
+    distances differ)."""
+    rng = np.random.default_rng(m)
+    n = 2 * tsk.CT - 1000
+    engine = tpqf.PQFlatIndex.build(rng.standard_normal((n, 128)).astype(np.float32),
+                                    TBuildConfig(m_pq=m, kmeans_iters=2), device="cpu")
+    codes = torch.from_numpy(np.pad(engine.codes, ((0, 2 * tsk.CT - n), (0, 0))))
+    cent8 = torch.from_numpy(engine.cb8.cent8)
+
+    def fused(q8, k, ratio):
+        return tsk.fused_scan_topk(q8, codes, n, k, tsk.CT, ratio=ratio, cent8=cent8,
+                                   winmin=tsk.pq_winmin_reference)
+
+    sc = np.float32(engine.cb8.scale)
+    q = rng.standard_normal((tsk.QT, 128)).astype(np.float32)
+    q *= np.float32(0.999 * 127.0 * sc / np.abs(q).max())
+    assert query_scale_ratio(q, sc)[1] == 1
+    _, fd = search_quantized(q, 10, n, sc, engine.device, fused, None)
+    _, ed = engine.search(q, 10, exact=True)
+    np.testing.assert_array_equal(fd[:, 0], ed[:, 0])
 
 
 @pytest.mark.parametrize("opq", [False, True])

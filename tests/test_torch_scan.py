@@ -105,6 +105,34 @@ def test_fused_scan_topk_matches_jax(int8_case, ratio, ntotal_cut):
         assert set(it[row].tolist()) == set(ij[row].tolist())
 
 
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("m", [1, 2, 64, 128])
+def test_fused_scan_topk_pq_at_every_m_matches_jax(m, ratio):
+    """The PQFLAT fused scan (pq_winmin's plain version here) at codebook
+    entries of 128, 64, 2 and 1 bytes, against the JAX fused PQ scan in
+    interpret mode: distances exact, ids as sets (ties)."""
+    rng = np.random.default_rng(m)
+    np_, k = 2 * jsk.CT, 16
+    codes = rng.integers(0, 256, (np_, m)).astype(np.uint8)
+    codes[100:140] = codes[99]  # duplicate rows: in-window ties
+    cent8 = rng.integers(-127, 128, (m, 256, 128 // m)).astype(np.int8)
+    q8 = rng.integers(-127, 128, (jsk.QT, 128)).astype(np.int8)
+    n = np_ - 1000
+    cent2d = jnp.asarray(cent8.reshape(-1, 128 // m).astype(np.float32), jnp.bfloat16)
+    dj, ij = jsk.fused_scan_topk(_qt_b(q8), jnp.asarray(codes.T.astype(np.int32)), n, k,
+                                 jsk.CT, "pq", cent2d=cent2d, ratio=ratio, exact=True,
+                                 interpret=True)
+    before = kernels.PQ_WINMIN.launches
+    dt, it = tsk.fused_scan_topk(torch.from_numpy(q8), torch.from_numpy(codes), n, k,
+                                 tsk.CT, ratio=ratio, cent8=torch.from_numpy(cent8))
+    assert kernels.PQ_WINMIN.launches == before  # CPU tensors: plain version
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    assert bool((it < n).all())
+    ij = np.asarray(ij)
+    for row in range(ij.shape[0]):
+        assert set(it[row].tolist()) == set(ij[row].tolist())
+
+
 @pytest.mark.parametrize("np_units", [1, 8, 9, 12, 16, 41])
 def test_choose_chunk_matches_jax(np_units):
     n = np_units * tsk._PAD_BASE

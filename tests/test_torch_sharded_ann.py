@@ -112,15 +112,22 @@ def test_jax_built_index_searches_alike(kind, n_data, n_shard, fold, data, tmp_p
         assert got[0].max() < N and (got[0][:, 0] >= 0).all()
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_port_built_index_searches_alike_in_jax(kind, data, tmp_path, interpret):
+_PORT_CASES = [pytest.param(kind, None, id=kind) for kind in KINDS]
+_PORT_CASES += [pytest.param("IVFPQ", 64, id="IVFPQ-m64")]
+
+
+@pytest.mark.parametrize("kind,m_pq", _PORT_CASES)
+def test_port_built_index_searches_alike_in_jax(kind, m_pq, data, tmp_path, interpret):
     """The port builds and saves (2 shards); the JAX package loads the same
     files; both search alike.  The port's shards equal the JAX package's
     engines' on disk too: the JAX search of the port's files equals the
-    port's."""
+    port's.  IVFPQ also at M_pq 64 (2-byte codebook entries)."""
     x, q = data
     jm, tm = _meshes(1, 2)
-    tidx = tsa.ShardedANNIndex.build(x, tm, TBuildConfig(**_CFG), index_type=kind)
+    cfg = TBuildConfig(**_CFG) if m_pq is None else TBuildConfig(**_CFG, m_pq=m_pq)
+    tidx = tsa.ShardedANNIndex.build(x, tm, cfg, index_type=kind)
+    if m_pq is not None:
+        assert all(sub.codebook.m == m_pq for sub in tidx.subs)
     _integer_centroids(tidx, tpq.PQCodebook, torch.round)
     tidx.save(str(tmp_path))
     assert jsa.read_manifest(str(tmp_path)) == {"n_shard": "2", "ntotal": str(N),

@@ -161,6 +161,79 @@ def test_sw_layout_passes_and_shared_memory():
         tsw.sw_layout(10, 150, 152, 2)  # 76 columns a lane: too many registers
 
 
+@pytest.mark.parametrize("lr", [600, 1000, 2000])
+def test_wide_rows_swap_and_match_jax(lr, monkeypatch):
+    """a rows 600-2,000 wide against b rows 150 wide (windows past the
+    kernel's old 512-byte cap against reads), ragged lengths: sw_scores
+    scores them with the narrower side as the rows, and equals the JAX
+    package's sw_scores exactly."""
+    rng = np.random.default_rng(lr)
+    p, lc = 24, 150
+    acgtn = np.frombuffer(b"ACGTN<>", np.uint8)
+    a = acgtn[rng.integers(0, 7, (p, lr))]
+    b = acgtn[rng.integers(0, 7, (p, lc))]
+    for i in range(0, p, 3):  # a read planted in its window
+        s = int(rng.integers(0, lr - lc))
+        b[i] = a[i, s:s + lc]
+    la, lb = np.full(p, lr), np.full(p, lc)
+    la[1::4] = rng.integers(0, lr + 1, la[1::4].shape)
+    lb[2::4] = rng.integers(0, lc + 1, lb[2::4].shape)
+    la[5], lb[6] = 0, 0
+    seen = []
+    plain = tsw.sw_scores_reference
+    monkeypatch.setattr(tsw, "sw_scores_reference",
+                        lambda am, al, bm, bl: seen.append((am.shape[1], bm.shape[1]))
+                        or plain(am, al, bm, bl))
+    got = _port(a, la, b, lb)
+    assert seen == [(lc, lr)]  # the reads are the rows
+    np.testing.assert_array_equal(got, jsw.sw_scores(a, la, b, lb))
+    assert got[0] == lc and got[5] == 0
+
+
+def test_kernel_holds_the_narrow_side_its_shared_memory_allows():
+    """The rows stay in shared memory, with two edge words a row and group
+    when lc takes more than one pass: past 4,842-byte rows at G = 32 they
+    no longer fit, and sw_layout counts the edges when it picks G."""
+    assert tsw.kernel_holds(150, 152) and tsw.kernel_holds(1280, 1280)
+    assert tsw.kernel_holds(4842, 5000) and not tsw.kernel_holds(4843, 5000)
+    with pytest.raises(ValueError):
+        tsw.sw_layout(5120, 4843, 5000)
+    for lr, lc in ((600, 2000), (2000, 2000), (4842, 5000), (1280, 1281), (512, 20)):
+        for p in (2, 5120):
+            g, s, passes = tsw.sw_layout(p, lr, lc)
+            assert g * s * passes >= lc
+            ng = 128 // g
+            smem = 4 * (ng * (lr | 1) + (2 * ng * lr if passes > 1 else 0))
+            assert smem <= tsw._SMEM, (lr, lc, p, g)
+    # 5,000-byte rows: their A words alone fit at G 32 (80 KB), not with
+    # the edges between passes (240 KB)
+    assert 4 * 4 * 5001 <= tsw._SMEM < 4 * (4 * 5001 + 8 * 5000)
+    with pytest.raises(ValueError):
+        tsw.sw_layout(2, 5000, 5000)
+
+
+def test_cli_sw_rerank_at_ref_len_600_matches_jax(data_dir, tmp_path):
+    """build-index at ref_len 600 (windows wider than the kernel's old cap)
+    -> pipeline --rerank sw through both CLIs: equal indices.npy.  The
+    distances the rerank carries are the engines' L2 readings: equal but
+    for a few (the encoders' fp32 sums run in other orders)."""
+    from deepreadmapper_tpu import cli as jcli
+    from deepreadmapper_tpu_torch import cli as tcli
+
+    fna, fq = str(data_dir / "ecoli_150.fna"), str(data_dir / "test_data.fastq")
+    out = {}
+    for tag, cli, dev in (("jax", jcli, ()), ("torch", tcli, ("--device", "cpu"))):
+        idx, res = str(tmp_path / f"{tag}_idx"), str(tmp_path / f"{tag}_out")
+        assert cli.main(["build-index", fna, idx, "600", *dev]) == 0
+        assert cli.main(["pipeline", idx, fq, fna, "128", "10", "128", res,
+                         "--rerank", "sw", *dev]) == 0
+        out[tag] = [np.load(str(tmp_path / f"{tag}_out" / f)) for f in
+                    ("indices.npy", "distances.npy")]
+    assert out["torch"][0].shape == (150, 10)
+    np.testing.assert_array_equal(out["torch"][0], out["jax"][0])
+    assert np.mean(out["torch"][1] == out["jax"][1]) >= 0.99
+
+
 def test_kernel_padding_matches_jax():
     """The kernel runs both pairs of a register to the longer one's lengths,
     reading a past la as 254 and b past lb as 255, and pads an odd P with a
