@@ -128,7 +128,13 @@ instructions in its SASS.  It holds the shapes past the old limits to their
 plain versions bit for bit and times them beside their bounds: pq_winmin at
 m 64 and 128, the IVFPQ scans (#7, #8) at m 2 and 64 on the IVF layout, and
 sw_score at 600 x 150 and 2,000 x 150 (windows against reads: the reads
-become the rows), 600 x 600 and 2,000 x 2,000.
+become the rows), 600 x 600 and 2,000 x 2,000; and sw_score's wider tiers
+(SW_TIERS: 5,000 x 5,000 and 14,600 x 14,600 in "global", 32,768 x 32,800
+in "int32"), one launch each, bit for bit, with the scratch bytes, the
+tier and the bound at the s16x2 or s32 DPX rate it measures.  Phase 6
+also runs build-index at ref_len 6,000 on a 50 kbp genome and pipeline
+--rerank sw on 512 reads of 6 kb (sw_score's "global" tier), and holds
+that rerank on the card to its CPU run on the same candidates.
 The last lines are one JSON object of kernel results (time, plain time,
 bound, library time, launches on the main path, and rank 0's launches in
 phase 14 (a)), the nvidia-smi line, and
@@ -165,6 +171,15 @@ SW_PAIRS = (5120, 17920, 65536)
 # windows of ref_len 600 / 2,000 against reads (the wrapper swaps them), and
 # wide rows on both sides (one pass; passes with edges in shared memory)
 SW_WIDE = ((600, 150), (2000, 150), (600, 600), (2000, 2000))
+# (a width, b width, pairs) past the shared tier's 4,842-byte rows: the
+# "global" tier (one pass and four; twelve passes) and the "int32" tier past
+# 32,767-byte rows; few pairs where the plain version walks 29k-66k
+# anti-diagonals
+SW_TIERS = ((5000, 5000, 1024), (14600, 14600, 256), (32768, 32800, 4))
+# phase 6's pipeline --rerank sw past shared memory: ref_len 6,000 windows
+# against 6 kb reads (6,002 wrapped), one rerank chunk of 512 reads x 10
+WIDE_SW_REF_LEN, WIDE_SW_GENOME_BP, WIDE_SW_READS = 6000, 50_000, 512
+WIDE_SW_CPU_READS = 2               # reads the CPU rerank repeats (20 pairs)
 PQ_M64_ROWS = 600_000               # phase 6's PQFLAT at M_pq 64: >= 2^19 windows
 SW_WIDE_REF_LEN = 600               # phase 6's pipeline --rerank sw past the old 512-byte rows
 PQ_MS = (8, 16, 64, 128)            # phase 3's pq_winmin m: 64 and 128 take 2- and 1-byte entries
@@ -196,6 +211,9 @@ INT32_OPS_S = 132 * 64 * 1.98e9
 # max for the best (csrc/sw_score.cu): 5.5 instructions for two cells.  The
 # rate is DPX's as check_sw measures it (NVIDIA's data sheet gives none).
 SW_OPS_PER_CELL = 5.5 / 2
+# The "int32" tier runs the same steps on one cell a register: 5.5 a cell,
+# at the s32 DPX rate check_sw measures (its SASS count is logged beside it)
+SW32_OPS_PER_CELL = 5.5
 SAM_K = 10                          # phase 10's k: 81,920 SAM lines for 8192 reads
 BENCH_REPS = 100                    # the bench twin's tiling: bench.py's 15,000 reads
 # phase 11: results/eval_paired_r3_5mbp.json's shape (scripts/eval_paired.py)
@@ -289,11 +307,16 @@ def sass_opcodes(so: str, fragment: str) -> dict:
 
 
 def strip_name(func: str) -> str:
-    """'S=5' for sw_score_kernel<5>'s mangled name, else the name."""
+    """'S=5' for sw_score_kernel<5, SHARED>'s mangled name (and an older
+    checkout's sw_score_kernel<5>), 'S=40 global' / 'S=40 int32' for the
+    wider tiers' kernels, else the name."""
     import re
 
-    m = re.search(r"sw_score_kernelILi(\d+)E", func)
-    return f"S={m.group(1)}" if m else func
+    m = re.search(r"sw_score_kernelILi(\d+)E(?:Li(\d)E)?", func)
+    if not m:
+        return func
+    tier = ("", " global", " int32")[int(m.group(2) or 0)]
+    return f"S={m.group(1)}{tier}"
 
 
 def dpx_count(ops) -> int:
@@ -716,9 +739,10 @@ def _sw_wide_pairs(rng, p: int, lr: int, lc: int):
     return a, la, b, lb
 
 
-def dpx_rate() -> float:
+def dpx_rate(s32: bool = False) -> float:
     """Lane instructions a second of sw_dpx_rate's loop of independent DPX
-    add-max instructions (__viaddmax_s16x2_relu) on every scheduler."""
+    add-max instructions (__viaddmax_s16x2_relu, or __viaddmax_s32_relu) on
+    every scheduler."""
     import torch
 
     from deepreadmapper_tpu_torch import kernels
@@ -726,8 +750,22 @@ def dpx_rate() -> float:
     blocks, iters = 132 * 16, 4096
     out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_time(lambda: kernels.SW_DPX_RATE.launch(out.data_ptr(), blocks, iters, stream), 5)
+    ms = cuda_time(lambda: kernels.SW_DPX_RATE.launch(out.data_ptr(), blocks, iters,
+                                                      int(s32), stream), 5)
     return blocks * 256 * iters * 32 / (ms * 1e-3)
+
+
+def cuda_once(fn):
+    """(fn(), its ms by CUDA events): one call, no warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def check_sw(results: dict):
@@ -804,6 +842,46 @@ def check_sw(results: dict):
             f"passes {layout}): scores exactly equal to the plain version; kernel "
             f"{t_kernel:.4f} ms ({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | plain "
             f"{t_plain:.3f} ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    rate32 = dpx_rate(s32=True)
+    log(f"[kernels] DPX add-max rate, s32 (measured, sw_dpx_rate): {rate32 / 1e12:.2f} T/s "
+        f"({rate32 / (132 * 1.98e9):.1f} a clock an SM at 1.98 GHz)")
+    tiers = {}
+    for lr, lc, p in SW_TIERS:
+        a, la, b, lb = _sw_wide_pairs(np.random.default_rng(lr + lc), p, lr, lc)
+        if lr < lc:
+            a[0] = b[0, lc - lr:]  # an exact copy: scores lr
+        a, la, b, lb = (torch.from_numpy(x).to(dev) for x in (a, la, b, lb))
+        la, lb = la.int(), lb.int()
+        layout = sw.sw_layout(p, lr, lc)
+        scratch = sw.sw_scratch_bytes(p, lr, lc)
+        before = kernels.SW_SCORE.launches
+        got = sw.sw_scores(a, la, b, lb)
+        torch.cuda.synchronize()
+        launched = kernels.SW_SCORE.launches - before
+        want, t_plain = cuda_once(lambda: sw.sw_scores_reference(a, la, b, lb))
+        if launched != 1 or not torch.equal(got, want):
+            raise AssertionError(f"sw_score {lr}x{lc} ({layout[3]} tier): "
+                                 f"{int((got != want).sum())} of {p} scores differ "
+                                 f"({launched} launches)")
+        if lr < lc and int(got[0]) != min(lr, lc):
+            raise AssertionError(f"sw_score {lr}x{lc}: an exact copy scores {int(got[0])}")
+        top = int(got.max())
+        del got, want
+        cells = float((la.double() * lb.double()).sum())
+        t_kernel = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 3)
+        wide32 = layout[3] == "int32"
+        bd = bound(float(la.sum() + lb.sum()) + 4.0 * 3 * p,
+                   (SW32_OPS_PER_CELL if wide32 else SW_OPS_PER_CELL) * cells,
+                   rate32 if wide32 else rate)
+        tiers[f"{lr}x{lc}"] = {"ms": t_kernel, "plain_ms": t_plain, **bd, "pairs": p,
+                               "layout": layout, "scratch_bytes": scratch}
+        log(f"[kernels] sw_score {p} pairs of {lr}x{lc}, tier {layout[3]} (G, S, passes "
+            f"{layout[:3]}; scratch {scratch} bytes): one launch, scores exactly equal to "
+            f"the plain version (max {top}); kernel {t_kernel:.4f} ms "
+            f"({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | plain {t_plain:.3f} ms | "
+            f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+            f"{SW32_OPS_PER_CELL if wide32 else SW_OPS_PER_CELL} instructions a cell at the "
+            f"measured {'s32' if wide32 else 's16x2'} DPX rate)")
     funcs = sass_opcodes(kernels.SW_SCORE.build(), "sw_score_kernel")
     dpx = {strip_name(f): dpx_count(c) for f, c in funcs.items()}
     main_s = f"S={sw.sw_layout(SW_PAIRS[0], READ_LEN, READ_LEN + 2)[1]}"
@@ -811,14 +889,25 @@ def check_sw(results: dict):
         f"path's {main_s}: {dict(sum((c for f, c in funcs.items() if strip_name(f) == main_s), Counter()).most_common(12))}")
     if not dpx.get(main_s):
         raise AssertionError(f"sw_score's {main_s} kernel has no DPX instruction")
+    for tag in ("S=40 global", "S=40 int32"):
+        ops = sum((c for f, c in funcs.items() if strip_name(f) == tag), Counter())
+        log(f"[kernels] sw_score {tag} SASS: {dpx.get(tag, 0)} DPX instructions (ptxas "
+            f"unswitches the row loop: each copy of the 40-column step holds 4 add-max "
+            f"and half a three-way max a cell); {dict(ops.most_common(12))}")
+        if not dpx.get(tag):
+            raise AssertionError(f"sw_score's {tag} kernel has no DPX instruction")
+    rates = {strip_name(f): dict(c.most_common(6))
+             for f, c in sass_opcodes(kernels.SW_SCORE.build(), "dpx_rate_kernel").items()}
+    log(f"[kernels] sw_dpx_rate SASS: {rates}")
     main = shapes[SW_PAIRS[0]]
     results["sw_score"] = {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
                            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                            "library_ms": None,
                            "extra": {"pairs": {str(p): v for p, v in shapes.items()},
-                                     "wide": wide,
+                                     "wide": wide, "tiers": tiers,
                                      "dpx_instructions": dpx[main_s],
-                                     "dpx_rate_measured": rate}}
+                                     "dpx_rate_measured": rate,
+                                     "dpx_rate_s32_measured": rate32}}
 
 
 def check_pq(results: dict):
@@ -1435,6 +1524,7 @@ def phase_genome_pq(results: dict):
     del engine, codes, cent8
     check_pqflat_m64(ref, q)
     check_cpu_size_sw()
+    check_wide_sw_cli()
     return pqflat
 
 
@@ -1580,6 +1670,119 @@ def check_cpu_size_sw():
         raise AssertionError(f"--rerank sw at ref_len {SW_WIDE_REF_LEN}: rc {rc}, {launches}")
     if inside < 0.95:
         raise AssertionError(f"ref_len {SW_WIDE_REF_LEN} SW top-1 holds the read for {inside}")
+
+
+def check_wide_sw_cli():
+    """build-index at ref_len WIDE_SW_REF_LEN on a seeded WIDE_SW_GENOME_BP
+    genome -> pipeline --rerank sw on WIDE_SW_READS simulated reads of that
+    length (either strand, 1% substitutions; no --long-reads): the SW
+    rerank's pairs are 6,000 x 6,002 bytes, past shared memory, so
+    sw_score runs in its "global" tier.  Then the same rerank in process on
+    the pipeline's candidates (its indices.npy), on the card and (the first
+    WIDE_SW_CPU_READS reads) with device="cpu": ids and scores equal, and
+    the pipeline's SAM primaries are the card rerank's top-1.  The top-1
+    against the simulated truth is printed, not gated (the encoder was
+    trained at 150 bp)."""
+    import torch
+
+    from deepreadmapper_tpu_torch import cli, kernels
+    from deepreadmapper_tpu_torch.io import fasta as fasta_io
+    from deepreadmapper_tpu_torch.ops import sw
+    from deepreadmapper_tpu_torch.pipeline import postprocess as pp
+    from deepreadmapper_tpu_torch.tokenizer import strings_to_bytes
+
+    n, L = WIDE_SW_READS, WIDE_SW_REF_LEN
+    work = os.path.join(WORK, "wide_sw")
+    os.makedirs(work, exist_ok=True)
+    gstr = _make_genome(WIDE_SW_GENOME_BP, 17)
+    ref, fq = os.path.join(work, "ref.fna"), os.path.join(work, "reads.fastq")
+    _write_fasta(ref, gstr)
+    rng = np.random.default_rng(18)
+    starts = rng.integers(0, WIDE_SW_GENOME_BP - L + 1, n)
+    strands = rng.integers(0, 2, n)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    seqs = []
+    for st, sd in zip(starts, strands):
+        r = gstr[st: st + L]
+        r = np.frombuffer((r.translate(_COMP)[::-1] if sd else r).encode(), np.uint8).copy()
+        mask = rng.random(L) < 0.01
+        r[mask] = acgt[rng.integers(0, 4, int(mask.sum()))]
+        seqs.append(r.tobytes().decode())
+    _write_fastq(fq, [(f"_{st}_{sd}_{i}", s)
+                      for i, (st, sd, s) in enumerate(zip(starts, strands, seqs))])
+    idx, out = os.path.join(work, "idx"), os.path.join(work, "out")
+    t0 = time.perf_counter()
+    if cli.main(["build-index", ref, idx, str(L)]) != 0:
+        raise AssertionError(f"build-index at ref_len {L} failed")
+    t_build = time.perf_counter() - t0
+    tiers, launch = [], kernels.SW_SCORE.launch
+
+    def recording(*args):  # the tier argument of each sw_score launch
+        tiers.append(sw._TIERS[args[12]])
+        return launch(*args)
+
+    kernels.reset_counts()
+    kernels.SW_SCORE.launch = recording
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["pipeline", idx, fq, ref, "128", "10", "128", out, "--rerank", "sw"])
+        torch.cuda.synchronize()
+    finally:
+        del kernels.SW_SCORE.launch
+    t_pipe = time.perf_counter() - t0
+    launches = kernels.counts()
+    log(f"[wide_sw] build-index {WIDE_SW_GENOME_BP} bp at ref_len {L} "
+        f"({2 * (WIDE_SW_GENOME_BP - L + 1)} windows) {t_build:.2f} s; pipeline --rerank sw on "
+        f"{n} reads of {L} bp: rc {rc}, {t_pipe:.2f} s, launches {launches}, sw_score tiers "
+        f"{tiers}")
+    if rc != 0 or launches["sw_score"] < 1 or set(tiers) != {"global"}:
+        raise AssertionError(f"--rerank sw at ref_len {L}: rc {rc}, {launches}, {tiers}")
+    # indices.npy holds the search's candidates (the SAM the SW-ranked ids):
+    # the rerank again on them, on the card and on the CPU
+    cand = np.load(os.path.join(out, "indices.npy")).astype(np.int64)
+    genome = fasta_io.parse_fasta_records(ref)[0]
+    q_mat, q_lens = strings_to_bytes(seqs)
+    bound_ids = 2 * (WIDE_SW_GENOME_BP - L + 1)
+
+    def fetch(w):
+        return fasta_io.fetch_windows_by_id(genome, w, L, max_len=L)
+
+    t0 = time.perf_counter()
+    gi, gs = pp.post_process_sw(cand, q_mat, q_lens, fetch, 1, 10, 10, bound_ids)
+    t_card = time.perf_counter() - t0
+    # the kernel alone on the rerank's pairs (one launch of n x 10), by CUDA events
+    w_mat, w_lens = fetch(cand.ravel())
+    a, la, b, lb = (torch.from_numpy(np.ascontiguousarray(x)).cuda().contiguous() for x in
+                    (w_mat, w_lens.astype(np.int32), np.repeat(q_mat, 10, axis=0),
+                     np.repeat(q_lens, 10).astype(np.int32)))
+    layout = sw.sw_layout(a.shape[0], a.shape[1], b.shape[1])
+    t_kernel = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 3)
+    cells = float((la.double() * lb.double()).sum())
+    bd = bound(float(la.sum() + lb.sum()) + 4.0 * 3 * a.shape[0], SW_OPS_PER_CELL * cells,
+               dpx_rate())
+    log(f"[wide_sw] sw_score alone on the rerank's {a.shape[0]} pairs of {a.shape[1]}x"
+        f"{b.shape[1]} (G, S, passes, tier {layout}; scratch "
+        f"{sw.sw_scratch_bytes(a.shape[0], a.shape[1], b.shape[1])} bytes): {t_kernel:.3f} ms "
+        f"({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']})")
+    del a, b
+    m = WIDE_SW_CPU_READS
+    t0 = time.perf_counter()
+    ci, cs = pp.post_process_sw(cand[:m], q_mat[:m], q_lens[:m], fetch, 1, 10, 10,
+                                bound_ids, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    equal = bool(np.array_equal(gi[:m], ci) and np.array_equal(gs[:m], cs))
+    pos, strand = sam_primaries(os.path.join(out, "results.sam"))
+    same_sam = float(np.mean((pos == gi[:, 0] >> 1) & (strand == (gi[:, 0] & 1))))
+    top = gi[:, 0]
+    top1 = float(np.mean((np.abs((top >> 1) - starts) <= 5) & ((top & 1) == strands)))
+    log(f"[wide_sw] post_process_sw on the pipeline's candidates: card {t_card:.2f} s "
+        f"({n} x 10 pairs), CPU {t_cpu:.2f} s (the first {m} reads): ids and scores equal "
+        f"{equal}; the SAM primaries are the card rerank's top-1 for {same_sam:.4f} of "
+        f"reads (need 1); best score {int(gs.max())}; top-1 against the simulated truth "
+        f"(+-5 bp, strand; not gated) {top1:.4f}")
+    if not equal or same_sam != 1.0:
+        raise AssertionError(f"wide SW rerank: card == CPU {equal}, SAM == card {same_sam}")
 
 
 def _top1(ids: np.ndarray, starts: np.ndarray, strands: np.ndarray) -> float:

@@ -4,13 +4,15 @@
 // Replaces deepreadmapper_tpu/ops/sw_pallas.py::_sw_kernel (driven by
 // _sw_pallas_call, sw_scores_pallas / sw_scores_auto), the SW rerank of
 // `pipeline --rerank sw`: a = candidate genome windows, b = '<'-wrapped reads.
+// Like sw_scores_auto it takes pairs of any width.
 //
 // What bounds it on an H100: instruction issue.  The DP has no tensor-core
-// form and reads only the pairs' bytes.  Every value fits in 16 bits (a
-// score is at most min(la, lb), which ops/sw.py keeps below 2^15, and the
-// relu floor keeps cells >= 0),
-// so Hopper's DPX instructions carry two pairs in each register, one in
-// each 16-bit half, and a pair of cells costs 5.5 instructions:
+// form and reads only the pairs' bytes.  A score is at most min(la, lb), no
+// DP value the kernel forms exceeds it, and the relu floor keeps cells >= 0,
+// so while the rows (the narrower side, ops/sw.py) are at most 32,767 bytes
+// every value fits in 16 bits and Hopper's DPX instructions carry two pairs
+// in each register, one in each 16-bit half; a pair of cells costs 5.5
+// instructions:
 //   z    = A ^ B[k]                  A = ~2a, B = 2b: -1 on a match, <= -3 else
 //   s1   = viaddmax_relu(z, 3, z)    2 on a match, 0 else (s + 1)
 //   x    = viaddmax(D, s1, U[k])     max(Hd + s, Hu - 1); the row above is kept as H - 1
@@ -19,8 +21,9 @@
 //   best = vimax3(best, x, x')       one for two cells (the max H is max(x, 0))
 // Each takes at most one constant, as an immediate: a second one (0 or -1)
 // would cost a register move nearly every time (ptxas rematerialises it).
-// chip_smoke.py counts these (SW_OPS_PER_CELL) against the DPX rate it
-// measures with sw_dpx_rate below.
+// Past 32,767-byte rows the same steps run on one pair a register in the
+// s32 forms of those instructions, 5.5 a cell.  chip_smoke.py counts these
+// (SW_OPS_PER_CELL) against the DPX rates it measures with sw_dpx_rate below.
 //
 // Design, against the three things that held the first version back:
 // - One pair a thread filled 40 of 132 SMs at the main path's 5,120-pair
@@ -33,16 +36,30 @@
 //   less one, its diagonal for row i + 1.  The group's best is reduced by
 //   __shfl_xor_sync at the end.  When lc needs more than S columns a lane
 //   even at G = 32, the strip is walked in passes, lane G - 1's right edge
-//   kept in shared memory for lane 0 of the next pass.
+//   kept for lane 0 of the next pass.
 // - Seven or eight scalar int32 instructions a cell are 2.75 here (above).
 // - A block's 58 KB of shared memory (the a rows and an int16 edge column a
 //   thread) allowed 3 blocks an SM.  Now shared memory holds only the packed
 //   A word of each group and row (NG x lr x 4 bytes; 19 KB at G = 4, lr 150),
 //   read by all lanes of a group at once (a broadcast).
+// Three tiers, chosen by ops/sw.py::sw_layout from the widths alone, run
+// this one kernel body (the template's TIER):
+// - SHARED: the A words, and between passes two edge words a row, in shared
+//   memory; the rows up to 4,842 bytes (with passes; the main path's 150).
+// - GLOBAL: rows of 4,843-32,767 bytes.  The A words and one edge word a row
+//   live in a global scratch the wrapper allocates (NG x (lr | 1 + lr)
+//   words a block), filled by the block's own prologue.  Lane g reads row
+//   t - g at step t, so a group's lanes read consecutive words (coalesced,
+//   L1-resident); lane 0 of a pass reads edge row i before lane G - 1 of
+//   that pass overwrites it, so one edge buffer does.
+// - INT32: rows past 32,767 bytes, one pair a group in 32-bit lanes, the
+//   GLOBAL tier's layout: no score wraps.
+// Between passes __syncwarp orders the edge writes before the next pass's
+// reads, in shared or in global memory.
 // Bytes past a pair's la read as 254 and past lb as 255 (the sentinels of
 // ops/sw.py): they never match, so cells there only decay and the best
-// stays the true-length DP's.  Each group runs to the longer of its two la;
-// a missing second pair (odd P) has length 0.
+// stays the true-length DP's.  Each group runs to the longer of its la; a
+// missing second pair (odd P, and the INT32 tier's) has length 0.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,43 +67,81 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned M1 = 0xffffffffu;     // (-1, -1)
-constexpr unsigned THREE = 0x00030003u;  // (3, 3)
+constexpr unsigned M1 = 0xffffffffu;     // (-1, -1), and -1
 constexpr unsigned PAD_A = 254u;
 constexpr unsigned PAD_B = 255u;
+
+// where a launch keeps its rows and pass edges, and what a lane carries
+// (ops/sw.py's tier names, in this order)
+enum Tier : int { SHARED = 0, GLOBAL = 1, INT32 = 2 };
 
 __device__ __forceinline__ int clamp_len(int n, int width) {
   return min(max(n, 0), width);
 }
 
-template <int S>
+// The DPX steps on two 16-bit halves, or (W32) on one 32-bit value
+template <bool W32>
+__device__ __forceinline__ unsigned addmax(unsigned a, unsigned b, unsigned c) {
+  if constexpr (W32) return (unsigned)__viaddmax_s32((int)a, (int)b, (int)c);
+  else return __viaddmax_s16x2(a, b, c);
+}
+
+template <bool W32>
+__device__ __forceinline__ unsigned addmax_relu(unsigned a, unsigned b, unsigned c) {
+  if constexpr (W32) return (unsigned)__viaddmax_s32_relu((int)a, (int)b, (int)c);
+  else return __viaddmax_s16x2_relu(a, b, c);
+}
+
+template <bool W32>
+__device__ __forceinline__ unsigned max3_relu(unsigned a, unsigned b, unsigned c) {
+  if constexpr (W32) return (unsigned)__vimax3_s32_relu((int)a, (int)b, (int)c);
+  else return __vimax3_s16x2_relu(a, b, c);
+}
+
+template <bool W32>
+__device__ __forceinline__ unsigned max_relu(unsigned a, unsigned b) {
+  if constexpr (W32) return (unsigned)__vimax_s32_relu((int)a, (int)b);
+  else return __vimax_s16x2_relu(a, b);
+}
+
+template <int S, int TIER>
 __global__ void __launch_bounds__(THREADS)
 sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
                 const uint8_t* __restrict__ b, const int* __restrict__ blen,
-                int* __restrict__ out, int np, int lr, int lc, int G, int passes) {
+                int* __restrict__ out, unsigned* scratch, int np, int lr, int lc,
+                int G, int passes) {
+  constexpr bool W32 = TIER == INT32;
+  constexpr int PG = W32 ? 1 : 2;      // pairs a group
+  constexpr unsigned THREE = W32 ? 3u : 0x00030003u;
   extern __shared__ unsigned smem[];
-  const int ng = THREADS / G;          // groups of the block, two pairs each
+  const int ng = THREADS / G;          // groups of the block
   const int pitch = lr | 1;            // odd: the groups' words of a row fall in distinct banks
-  unsigned* a_sh = smem;               // [ng][pitch] A words
-  unsigned* edge = smem + ng * pitch;  // [2][ng][lr] right edges between passes
+  // [ng][pitch] A words, then the right edges between passes: [2][ng][lr]
+  // in shared memory, [ng][lr] in the block's slice of the global scratch
+  unsigned* a_sh = TIER == SHARED ? smem : scratch + (size_t)blockIdx.x * ng * (pitch + lr);
+  unsigned* edge = a_sh + ng * pitch;
 
   const int tid = threadIdx.x;
   const int grp = tid / G, g = tid % G;
-  const int p0 = blockIdx.x * 2 * ng;  // the block's pairs are contiguous
-  const int rows_here = min(2 * ng, np - p0);
+  const int p0 = blockIdx.x * PG * ng;  // the block's pairs are contiguous
+  const int rows_here = min(PG * ng, np - p0);
 
-  // A word of a row: ~2a of pair 2m in the low half, of pair 2m + 1 in the high
-  uint16_t* a16 = reinterpret_cast<uint16_t*>(a_sh);
+  // A word of a row: ~2a of pair 2m in the low half, of pair 2m + 1 in the
+  // high half; in 32-bit lanes ~2a of pair m
   const uint8_t* ablk = a + (size_t)p0 * lr;
-  for (int idx = tid; idx < 2 * ng * lr; idx += THREADS) {
+  for (int idx = tid; idx < PG * ng * lr; idx += THREADS) {
     const int t = idx / lr, i = idx - t * lr;
     unsigned byte = PAD_A;
     if (t < rows_here && i < clamp_len(alen[p0 + t], lr)) byte = ablk[idx];
-    a16[((t >> 1) * pitch + i) * 2 + (t & 1)] = (uint16_t)~(byte << 1);
+    if constexpr (W32)
+      a_sh[t * pitch + i] = ~(byte << 1);
+    else
+      reinterpret_cast<uint16_t*>(a_sh)[((t >> 1) * pitch + i) * 2 + (t & 1)] =
+          (uint16_t)~(byte << 1);
   }
   __syncthreads();
 
-  const int plo = p0 + 2 * grp, phi = plo + 1;
+  const int plo = p0 + PG * grp, phi = W32 ? np : plo + 1;  // no second pair in 32-bit lanes
   const int la = max(plo < np ? clamp_len(alen[plo], lr) : 0,
                      phi < np ? clamp_len(alen[phi], lr) : 0);
   const int lb_lo = plo < np ? clamp_len(blen[plo], lc) : 0;
@@ -104,12 +159,18 @@ sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
     for (int k = 0; k < S; ++k) {
       const int c = c0 + k;
       const unsigned lo = c < lb_lo ? b_lo[c] : PAD_B;
-      const unsigned hi = c < lb_hi ? b_hi[c] : PAD_B;
-      bw[k] = (lo << 1) | (hi << 17);
+      if constexpr (W32) {
+        bw[k] = lo << 1;
+      } else {
+        const unsigned hi = c < lb_hi ? b_hi[c] : PAD_B;
+        bw[k] = (lo << 1) | (hi << 17);
+      }
       up[k] = M1;  // the row above row 0: H = 0
     }
-    const unsigned* ein = edge + (size_t)(((q + 1) & 1) * ng + grp) * lr;  // pass q - 1's
-    unsigned* eout = edge + (size_t)((q & 1) * ng + grp) * lr;
+    // pass q - 1's edges, and this pass's: one buffer outside shared memory
+    const int bin = TIER == SHARED ? (q + 1) & 1 : 0, bout = TIER == SHARED ? q & 1 : 0;
+    const unsigned* ein = edge + (size_t)(bin * ng + grp) * lr;
+    unsigned* eout = edge + (size_t)(bout * ng + grp) * lr;
     unsigned right = 0, dm1 = M1;  // dm1: H[i-1][c0-1] - 1
     for (int t = 0; t < steps; ++t) {
       unsigned h = __shfl_up_sync(FULL, right, 1, G);  // lane g - 1's H[i][c0-1]
@@ -123,52 +184,64 @@ sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
 #pragma unroll
         for (int k = 0; k < S; ++k) {
           const unsigned z = A ^ bw[k];
-          const unsigned s1 = __viaddmax_s16x2_relu(z, THREE, z);
-          const unsigned x = __viaddmax_s16x2(diag, s1, up[k]);
-          if (k & 1) best = __vimax3_s16x2_relu(best, x_even, x);
+          const unsigned s1 = addmax_relu<W32>(z, THREE, z);
+          const unsigned x = addmax<W32>(diag, s1, up[k]);
+          if (k & 1) best = max3_relu<W32>(best, x_even, x);
           else x_even = x;
           diag = up[k];
-          h = __viaddmax_s16x2_relu(h, M1, x);
-          up[k] = __viaddmax_s16x2(h, M1, z);
+          h = addmax_relu<W32>(h, M1, x);
+          up[k] = addmax<W32>(h, M1, z);
         }
-        if (S & 1) best = __vimax_s16x2_relu(best, x_even);
+        if (S & 1) best = max_relu<W32>(best, x_even);
         right = h;
         if (g == G - 1 && q + 1 < passes) eout[i] = h;
-        dm1 = __viaddmax_s16x2(left, M1, A);  // left - 1 (A <= -1)
+        dm1 = addmax<W32>(left, M1, A);  // left - 1 (A <= -1)
       }
     }
     __syncwarp();  // eout complete before the next pass reads it
   }
   for (int o = G >> 1; o > 0; o >>= 1)
-    best = __vimax_s16x2_relu(best, __shfl_xor_sync(FULL, best, o, G));
+    best = max_relu<W32>(best, __shfl_xor_sync(FULL, best, o, G));
   if (g == 0) {
-    if (plo < np) out[plo] = (int)(best & 0xffffu);
-    if (phi < np) out[phi] = (int)(best >> 16);
+    if constexpr (W32) {
+      if (plo < np) out[plo] = (int)best;
+    } else {
+      if (plo < np) out[plo] = (int)(best & 0xffffu);
+      if (phi < np) out[phi] = (int)(best >> 16);
+    }
   }
 }
 
-template <int S>
+template <int S, int TIER>
 int launch(const void* a, const void* alen, const void* b, const void* blen,
-           void* out, int np, int lr, int lc, int G, int passes,
+           void* out, void* scratch, int np, int lr, int lc, int G, int passes,
            cudaStream_t stream) {
   const int ng = THREADS / G;
-  const size_t smem = ((size_t)ng * (lr | 1) + (passes > 1 ? (size_t)2 * ng * lr : 0)) *
-                      sizeof(unsigned);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sw_score_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  size_t smem = 0;
+  if constexpr (TIER == SHARED) {
+    smem = ((size_t)ng * (lr | 1) + (passes > 1 ? (size_t)2 * ng * lr : 0)) *
+           sizeof(unsigned);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          sw_score_kernel<S, TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  } else if (scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = ((np + 1) / 2 + ng - 1) / ng;
-  sw_score_kernel<S><<<blocks, THREADS, smem, stream>>>(
+  const int pg = TIER == INT32 ? 1 : 2;
+  const int blocks = ((np + pg - 1) / pg + ng - 1) / ng;
+  sw_score_kernel<S, TIER><<<blocks, THREADS, smem, stream>>>(
       static_cast<const uint8_t*>(a), static_cast<const int*>(alen),
       static_cast<const uint8_t*>(b), static_cast<const int*>(blen),
-      static_cast<int*>(out), np, lr, lc, G, passes);
+      static_cast<int*>(out), static_cast<unsigned*>(scratch), np, lr, lc, G, passes);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A loop of independent DPX add-max instructions on every scheduler: the
-// rate the bound of sw_score divides by (chip_smoke.py).
+// A loop of independent DPX add-max instructions on every scheduler, on
+// 16-bit halves or (W32) on 32-bit values: the rates the bounds of sw_score
+// divide by (chip_smoke.py).
+template <bool W32>
 __global__ void __launch_bounds__(256) dpx_rate_kernel(unsigned* out, int iters) {
   unsigned v[8];
   const unsigned c = (unsigned)iters * 0x00050003u;
@@ -178,7 +251,7 @@ __global__ void __launch_bounds__(256) dpx_rate_kernel(unsigned* out, int iters)
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __viaddmax_s16x2_relu(v[j], M1, c);
+      for (int j = 0; j < 8; ++j) v[j] = addmax_relu<W32>(v[j], M1, c);
     }
   }
   unsigned r = 0;
@@ -191,33 +264,51 @@ __global__ void __launch_bounds__(256) dpx_rate_kernel(unsigned* out, int iters)
 
 // a [np, lr] uint8, alen [np] int32, b [np, lc] uint8, blen [np] int32 ->
 // out [np] int32.  groups G (a power of two <= 32), strip S (columns a lane
-// holds, one of the instantiations below) and passes come from
-// ops/sw.py::sw_layout; G x S x passes >= lc.
+// holds, one of the instantiations below), passes and tier (0 SHARED, 1
+// GLOBAL, 2 INT32) come from ops/sw.py::sw_layout; G x S x passes >= lc.
+// The GLOBAL and INT32 tiers take G = 32 and S 32 or 40 (their lc is past
+// 32 x 40 columns), and scratch: ceil(ceil(np / pairs a group) / (128 / G))
+// x (128 / G) x ((lr | 1) + lr) uint32 words (ops/sw.py::sw_scratch_bytes).
 extern "C" int sw_score(const void* a, const void* alen, const void* b,
-                        const void* blen, void* out, int np, int lr, int lc,
-                        int groups, int strip, int passes, void* stream) {
+                        const void* blen, void* out, void* scratch, int np, int lr,
+                        int lc, int groups, int strip, int passes, int tier,
+                        void* stream) {
   if (groups < 1 || groups > 32 || (groups & (groups - 1)) || passes < 1 ||
       (long long)groups * strip * passes < lc)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SW_CASE(S)                                                            \
-  case S:                                                                     \
-    return launch<S>(a, alen, b, blen, out, np, lr, lc, groups, passes, st);
-  switch (strip) {
-    SW_CASE(1) SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6)
-    SW_CASE(8) SW_CASE(10) SW_CASE(12) SW_CASE(16) SW_CASE(20) SW_CASE(24)
-    SW_CASE(32) SW_CASE(40)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define SW_CASE(S, T)                                                          \
+  case S:                                                                      \
+    return launch<S, T>(a, alen, b, blen, out, scratch, np, lr, lc, groups,     \
+                        passes, st);
+  switch (tier) {
+    case SHARED:
+      switch (strip) {
+        SW_CASE(1, SHARED) SW_CASE(2, SHARED) SW_CASE(3, SHARED) SW_CASE(4, SHARED)
+        SW_CASE(5, SHARED) SW_CASE(6, SHARED) SW_CASE(8, SHARED) SW_CASE(10, SHARED)
+        SW_CASE(12, SHARED) SW_CASE(16, SHARED) SW_CASE(20, SHARED)
+        SW_CASE(24, SHARED) SW_CASE(32, SHARED) SW_CASE(40, SHARED)
+      }
+      break;
+    case GLOBAL:
+      switch (strip) { SW_CASE(32, GLOBAL) SW_CASE(40, GLOBAL) }
+      break;
+    case INT32:
+      switch (strip) { SW_CASE(32, INT32) SW_CASE(40, INT32) }
+      break;
   }
 #undef SW_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out [blocks x 256] uint32; each thread runs iters x 32
-// __viaddmax_s16x2_relu instructions.
-extern "C" int sw_dpx_rate(void* out, int blocks, int iters, void* stream) {
-  dpx_rate_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(out), iters);
+// out [blocks x 256] uint32; each thread runs iters x 32 DPX add-max
+// instructions: __viaddmax_s16x2_relu, or __viaddmax_s32_relu when s32 is 1.
+extern "C" int sw_dpx_rate(void* out, int blocks, int iters, int s32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s32)
+    dpx_rate_kernel<true><<<blocks, 256, 0, st>>>(static_cast<unsigned*>(out), iters);
+  else
+    dpx_rate_kernel<false><<<blocks, 256, 0, st>>>(static_cast<unsigned*>(out), iters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -133,8 +133,9 @@ GRU_FWD = CudaKernel("gru_fwd", [_P] * 7 + [_I] * 5 + [_P])
 GRU_BWD = CudaKernel("gru_bwd", [_P] * 9 + [_I] * 3 + [_P])
 # int8_winmin(q8, r8, vals, args, qp, np, w, ntotal, ratio2, stream)
 INT8_WINMIN = CudaKernel("int8_winmin", [_P] * 4 + [_I] * 4 + [_F, _P])
-# sw_score(a, alen, b, blen, out, np, lr, lc, groups, strip, passes, stream)
-SW_SCORE = CudaKernel("sw_score", [_P] * 5 + [_I] * 6 + [_P])
+# sw_score(a, alen, b, blen, out, scratch, np, lr, lc, groups, strip, passes,
+#          tier, stream)
+SW_SCORE = CudaKernel("sw_score", [_P] * 6 + [_I] * 7 + [_P])
 # pq_winmin(q8, codes, cent8, vals, args, qp, np, w, ntotal, ratio2, m, ksub, stream)
 PQ_WINMIN = CudaKernel("pq_winmin", [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P])
 
@@ -161,10 +162,10 @@ IVF_CHUNK_PQ_FOLD = CudaKernel("ivf_chunk_pq_fold",
 # not in ALL
 IVF_FOLD = CudaKernel("ivf_fold", [_P] * 5 + [_I] * 2 + [_P], "ivf_chunk")
 
-# sw_dpx_rate(out, blocks, iters, stream): a loop of DPX add-max
-# instructions, the rate sw_score's bound divides by; not a kernel of the
-# main path, so not in ALL
-SW_DPX_RATE = CudaKernel("sw_dpx_rate", [_P] + [_I] * 2 + [_P], "sw_score")
+# sw_dpx_rate(out, blocks, iters, s32, stream): a loop of DPX add-max
+# instructions (16-bit halves, or 32-bit values when s32 is 1), the rates
+# sw_score's bounds divide by; not a kernel of the main path, so not in ALL
+SW_DPX_RATE = CudaKernel("sw_dpx_rate", [_P] + [_I] * 3 + [_P], "sw_score")
 
 ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, PQ_WINMIN, IVF_CHUNK_INT8,
        IVF_CHUNK_INT8_FOLD, IVF_CHUNK_PQ, IVF_CHUNK_PQ_FOLD, GRU_BWD)

@@ -12,12 +12,16 @@ values are reserved, as in the JAX package.
 
 The score is symmetric in a and b, so :func:`sw_scores` puts the narrower
 side in the rows (``a``) and the wider one in the columns: the kernel keeps
-the rows in shared memory and walks the columns in passes.  It runs
-``csrc/sw_score.cu`` on CUDA tensors and the plain wavefront
-:func:`sw_scores_reference` on CPU tensors.  On the card it raises for
-pairs whose narrower side is wider than the kernel holds
-(:func:`kernel_holds`: past 4,842 bytes both sides), which no read-window
-pair reaches.
+the rows' words where every lane of a group reads them and walks the
+columns in passes.  It runs ``csrc/sw_score.cu`` on CUDA tensors and the
+plain wavefront :func:`sw_scores_reference` on CPU tensors.  On the card it
+takes pairs of any width, as the JAX package's ``sw_scores_auto`` does,
+in one of three tiers that :func:`sw_layout` picks from the widths:
+"shared" (rows in shared memory: a narrower side up to 4,842 bytes, so
+short reads against windows of any length), "global" (rows and pass edges
+in a global scratch: up to 32,767 bytes, e.g. 6 kb reads against ref_len
+6,000 windows) and "int32" (one pair a group in 32-bit lanes past 32,767,
+where the 16-bit halves would wrap).
 """
 
 from __future__ import annotations
@@ -31,12 +35,14 @@ _PAD_B = 255
 
 # A score is at most the narrower width, and no DP value the kernel forms
 # exceeds the score (a match adds 2 to H - 1), so the kernel's signed 16-bit
-# halves hold rows up to this width; shared memory holds fewer (kernel_holds)
+# halves hold rows up to this width; past it the "int32" tier runs
 _MAX_LR = 32767
 _THREADS = 128  # lanes a block (csrc/sw_score.cu THREADS)
 # columns a lane holds in registers: the kernel's instantiations of S
 _STRIPS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32, 40)
 _SMEM = 232_448  # shared memory a block may use on an H100
+_SCRATCH = 1 << 30  # bytes of global scratch one launch of the wider tiers may use
+_TIERS = ("shared", "global", "int32")  # csrc/sw_score.cu's Tier, in order
 # lanes that put 4 warps on each scheduler of an H100 (132 SMs x 4)
 _LANES_WANTED = 132 * 4 * 4 * 32
 
@@ -103,30 +109,34 @@ def _smem_bytes(lr: int, lc: int, g: int) -> int:
     return 4 * (ng * (lr | 1) + (2 * ng * lr if _passes(lc, g) > 1 else 0))
 
 
-def kernel_holds(lr: int, lc: int) -> bool:
-    """Whether the kernel takes rows lr wide against columns lc wide (lr <=
-    lc, as sw_scores orders them): the score fits its 16-bit halves and
-    the rows fit shared memory at G = 32.  Past a narrower side of 4,842
-    bytes (1,280 < lc) they do not."""
-    return lr <= _MAX_LR and _smem_bytes(lr, max(lc, 1), 32) <= _SMEM
+def _tier(lr: int, lc: int) -> str:
+    """Where a launch keeps its rows: shared memory while the A words of 4
+    groups of 32 lanes, and with more than one pass their edges, fit it
+    (rows lr <= 4,842 bytes against lc >= lr); else a global scratch, in
+    16-bit halves up to 32,767-byte scores and in 32-bit lanes past them."""
+    if _smem_bytes(lr, lc, 32) <= _SMEM:
+        return "shared"
+    return "global" if min(lr, lc) <= _MAX_LR else "int32"
 
 
-def sw_layout(p: int, lr: int, lc: int, group: int | None = None) -> tuple[int, int, int]:
+def sw_layout(p: int, lr: int, lc: int,
+              group: int | None = None) -> tuple[int, int, int, str]:
     """How csrc/sw_score.cu splits a launch of p pairs of widths lr x lc:
-    (G, S, passes).  A group of G lanes shares two pairs; each lane holds S
-    columns of b, and the G x S columns a pass covers are walked in
-    `passes` passes (more than one only when lc > 32 x 40).  G is the
-    smallest power of two that gives the launch 4 warps a scheduler of the
-    card where p allows, and no smaller than the registers (S <= 40) and the
-    shared memory (the A words of 128 / G groups, and their right edges
-    between passes) need, and no more lanes than lc has columns.  `group`
-    forces G (tests)."""
+    (G, S, passes, tier).  A group of G lanes shares two pairs (one in the
+    "int32" tier); each lane holds S columns of b, and the G x S columns a
+    pass covers are walked in `passes` passes (more than one only when lc >
+    32 x 40).  The tier (:func:`_tier`) says where the rows and the pass
+    edges live.  G is the smallest power of two that gives the launch 4
+    warps a scheduler of the card where p allows, and no smaller than the
+    registers (S <= 40) and, in the "shared" tier, the shared memory (the A
+    words of 128 / G groups, and their right edges between passes) need,
+    and no more lanes than lc has columns: the wider tiers' lc (past 32 x
+    40 columns) always takes G 32.  `group` forces G (tests)."""
     lc = max(lc, 1)
-    if not kernel_holds(lr, lc):
-        raise ValueError(f"sw_score kernel does not hold rows {lr} wide against {lc}")
+    tier = _tier(lr, lc)
     g_min = 1
     while g_min < 32 and (-(-lc // g_min) > _STRIPS[-1]
-                          or _smem_bytes(lr, lc, g_min) > _SMEM):
+                          or (tier == "shared" and _smem_bytes(lr, lc, g_min) > _SMEM)):
         g_min *= 2
     if group is None:
         g, g_max = g_min, max(g_min, min(32, 1 << (lc.bit_length() - 1)))
@@ -140,7 +150,31 @@ def sw_layout(p: int, lr: int, lc: int, group: int | None = None) -> tuple[int, 
     per_lane = -(-lc // g)
     passes = _passes(lc, g)
     s = next(x for x in _STRIPS if x * passes >= per_lane)
-    return g, s, passes
+    return g, s, passes, tier
+
+
+def _scratch_per_block(lr: int, g: int) -> int:
+    """Bytes of global scratch a block of the wider tiers takes: the A words
+    of its 128 / g groups (lr | 1 each) and one edge word a row and group."""
+    return 4 * (_THREADS // g) * ((lr | 1) + lr)
+
+
+def _launch_split(p: int, lr: int, g: int, tier: str) -> tuple[int, int]:
+    """(pairs a launch, scratch bytes) of a call of p > 0 pairs in one of
+    the wider tiers: as many pairs as keep a launch's scratch at or under
+    1 GiB, the scratch its largest launch takes."""
+    ng, pg = _THREADS // g, 1 if tier == "int32" else 2
+    step = min(p, max(1, _SCRATCH // _scratch_per_block(lr, g)) * ng * pg)
+    return step, -(-step // (ng * pg)) * _scratch_per_block(lr, g)
+
+
+def sw_scratch_bytes(p: int, lr: int, lc: int) -> int:
+    """Bytes of global scratch :func:`sw_scores` allocates for p pairs with
+    rows lr and columns lc wide (lr <= lc): 0 in the "shared" tier, else the
+    scratch of its largest launch, at most 1 GiB (a call past that many
+    pairs runs in several launches that reuse it)."""
+    g, _, _, tier = sw_layout(p, lr, lc)
+    return 0 if tier == "shared" or p == 0 else _launch_split(p, lr, g, tier)[1]
 
 
 def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
@@ -148,10 +182,12 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
     """Batched SW scores: csrc/sw_score.cu on CUDA tensors, the plain version
     on CPU tensors.  a_mat [P, lr] / b_mat [P, lc] uint8, lengths [P] (any
     integer type; clipped to [0, width]) -> int32 [P].  The narrower side
-    becomes the rows (the score is symmetric); on the card, past what the
-    kernel holds (:func:`kernel_holds`) it raises ValueError.  The kernel reads no byte
-    past a row's length: it takes the sentinels there itself.  `group`
-    forces the kernel's G (tests; see :func:`sw_layout`)."""
+    becomes the rows (the score is symmetric).  On the card any widths run
+    in the tier :func:`sw_layout` picks; the wider tiers take a global
+    scratch of :func:`sw_scratch_bytes` (at most 1 GiB: more pairs than
+    that holds run in several launches).  The kernel reads no byte past a
+    row's length: it takes the sentinels there itself.  `group` forces the
+    kernel's G (tests; see :func:`sw_layout`)."""
     if a_mat.dtype != torch.uint8 or b_mat.dtype != torch.uint8:
         raise TypeError(f"sw_scores takes uint8 bytes, got {a_mat.dtype}, {b_mat.dtype}")
     if a_mat.dim() != 2 or b_mat.dim() != 2:
@@ -172,7 +208,7 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lr, lc = a_mat.shape[1], b_mat.shape[1]
-    g, strip, passes = sw_layout(p, lr, lc, group)
+    g, strip, passes, tier = sw_layout(p, lr, lc, group)
     out = torch.empty(p, dtype=torch.int32, device=dev)
     if p == 0:
         return out
@@ -180,10 +216,19 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
     b_mat = b_mat.contiguous()
     la = a_lens.to(device=dev, dtype=torch.int32).contiguous()
     lb = b_lens.to(device=dev, dtype=torch.int32).contiguous()
+    if tier == "shared":
+        step, scratch = p, None
+    else:
+        step, nbytes = _launch_split(p, lr, g, tier)
+        scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.SW_SCORE.launch(
-            a_mat.data_ptr(), la.data_ptr(), b_mat.data_ptr(), lb.data_ptr(),
-            out.data_ptr(), p, lr, lc, g, strip, passes, stream,
-        )
+        for s in range(0, p, step):
+            n = min(step, p - s)
+            kernels.SW_SCORE.launch(
+                a_mat.data_ptr() + s * lr, la.data_ptr() + 4 * s,
+                b_mat.data_ptr() + s * lc, lb.data_ptr() + 4 * s,
+                out.data_ptr() + 4 * s, None if scratch is None else scratch.data_ptr(),
+                n, lr, lc, g, strip, passes, _TIERS.index(tier), stream,
+            )
     return out

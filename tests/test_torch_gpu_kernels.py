@@ -228,17 +228,44 @@ def test_sw_kernel_wide_rows(cuda, lr, lc):
     assert (got[::2].cpu().numpy() >= n).all()
 
 
-def test_sw_raises_past_the_kernel(cuda):
-    """Both sides past 4,842 bytes: no launch and no plain route on the
-    card, a ValueError before any launch."""
-    rng = np.random.default_rng(3)
+def _sw_wide(lr, lc, p, seed):
+    """p ACGT pairs lr x lc wide: the narrower side planted in the wider one
+    in every second pair, ragged lengths in pair 1 and a zero length in
+    pair p - 1 (p >= 3)."""
+    rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
-    a = torch.tensor(acgt[rng.integers(0, 4, (3, 4900))]).to(cuda)
-    n = torch.full((3,), 4900, device=cuda)
-    before = kernels.SW_SCORE.launches
-    with pytest.raises(ValueError, match="does not hold"):
-        sw.sw_scores(a, n, a.clone(), n)
-    assert kernels.SW_SCORE.launches == before
+    a = acgt[rng.integers(0, 4, (p, lr))]
+    b = acgt[rng.integers(0, 4, (p, lc))]
+    a[::2] = b[::2, lc - lr:]
+    la, lb = np.full(p, lr), np.full(p, lc)
+    la[1], lb[1] = rng.integers(lr // 2, lr), rng.integers(lc // 2, lc)
+    lb[p - 1] = 0
+    return a, la, b, lb
+
+
+@pytest.mark.parametrize("lr,lc", [(4843, 5000), (5000, 5000), (14600, 14600),
+                                   (32767, 32767), (32768, 32800), (32800, 32800)])
+def test_sw_kernel_past_shared_memory(cuda, lr, lc):
+    """Rows past the 4,842 bytes shared memory holds: the "global" tier (one
+    pass and several, its rows and pass edges in a global scratch) up to
+    32,767 bytes, the "int32" tier past them.  One launch each, bit for bit
+    the plain version; a planted pair scores its narrower width, so
+    32,768 and 32,800 show that no score wraps at 16 bits."""
+    tier = "global" if lr <= 32767 else "int32"
+    assert sw.sw_layout(3, lr, lc)[3] == tier and sw.sw_scratch_bytes(3, lr, lc) > 0
+    got = _sw_check(cuda, *_sw_wide(lr, lc, 3, seed=lr + lc))
+    assert int(got[0]) == lr and int(got[2]) == 0
+
+
+@pytest.mark.parametrize("lr,tier", [(4842, "shared"), (4843, "global"), (32767, "global"),
+                                     (32768, "int32")])
+def test_sw_kernel_tier_boundaries(cuda, lr, tier):
+    """Each side of the tiers' boundaries, rows lr against lr + 1 columns
+    and an odd P (a pad pair in the 16-bit tiers): the tier sw_layout
+    picks, one launch, bit for bit; the planted pairs score lr."""
+    assert sw.sw_layout(5, lr, lr + 1)[3] == tier
+    got = _sw_check(cuda, *_sw_wide(lr, lr + 1, 5, seed=lr))
+    assert int(got[0]) == int(got[2]) == lr and int(got[3]) < lr and int(got[4]) == 0
 
 
 @pytest.mark.parametrize("p", [5120, 17920, 65536])

@@ -125,14 +125,21 @@ def test_sw_scores_rejects_bad_inputs():
         tsw.sw_scores(a, n[:2], a, n)
 
 
-@pytest.mark.parametrize("lc", [3, 152, 514])
+# rows 150 wide against reads and windows (one pass, the "shared" tier), and
+# both sides wide: passes, in the "global" and the "int32" tiers
+@pytest.mark.parametrize("lr,lc", [pytest.param(150, lc, id=str(lc)) for lc in (3, 152, 514)]
+                         + [pytest.param(lr, lc, id=f"{lr}x{lc}") for lr, lc in
+                            ((4843, 5000), (14600, 14600), (32768, 32800))])
 @pytest.mark.parametrize("p", [1, 5120, 17920, 65536, 10**6])
-def test_sw_layout_covers_every_column(p, lc):
+def test_sw_layout_covers_every_column(p, lr, lc):
     """The kernel's lane (q, g) holds columns (q G + g) S .. + S - 1: G x S
     x passes slots cover the lc columns once each, S fits the registers
-    (<= 40) and G is a power of two <= 32."""
-    g, s, passes = tsw.sw_layout(p, 150, lc)
-    assert g in (1, 2, 4, 8, 16, 32) and 1 <= s <= 40 and passes == 1
+    (<= 40), G is a power of two <= 32, and a pass takes at most 32 x 40
+    columns."""
+    g, s, passes, tier = tsw.sw_layout(p, lr, lc)
+    assert g in (1, 2, 4, 8, 16, 32) and 1 <= s <= 40
+    assert passes == -(-lc // (32 * 40)) and tier == tsw._tier(lr, lc)
+    assert tier == ("shared" if lr == 150 else "int32" if lr > 32767 else "global")
     cols = sorted((q * g + lane) * s + k for q in range(passes) for lane in range(g)
                   for k in range(s))
     assert cols == list(range(g * s * passes)) and g * s * passes >= lc
@@ -141,20 +148,20 @@ def test_sw_layout_covers_every_column(p, lc):
     wanted, pairs2 = 132 * 4 * 4 * 32, (p + 1) // 2
     assert g == min(32, 1 << (lc.bit_length() - 1)) or pairs2 * g >= wanted
     try:
-        smaller = g > 1 and tsw.sw_layout(p, 150, lc, g // 2)
+        smaller = g > 1 and tsw.sw_layout(p, lr, lc, g // 2)
     except ValueError:
         smaller = False
     assert not smaller or pairs2 * (g // 2) < wanted
     for forced in (g, 32):
-        assert tsw.sw_layout(p, 150, lc, forced)[0] == forced
+        assert tsw.sw_layout(p, lr, lc, forced)[0] == forced
     with pytest.raises(ValueError):
-        tsw.sw_layout(p, 150, lc, 3)
+        tsw.sw_layout(p, lr, lc, 3)
 
 
 def test_sw_layout_passes_and_shared_memory():
     """lc beyond 32 lanes x 40 columns takes passes; lr 512 needs G >= 2
     for the A words of 128 / G groups to fit in shared memory."""
-    assert tsw.sw_layout(1, 100, 2000) == (32, 32, 2)
+    assert tsw.sw_layout(1, 100, 2000) == (32, 32, 2, "shared")
     assert tsw.sw_layout(10**6, 512, 20)[0] == 2
     assert tsw.sw_layout(10**6, 150, 20)[0] == 1
     with pytest.raises(ValueError):
@@ -191,25 +198,113 @@ def test_wide_rows_swap_and_match_jax(lr, monkeypatch):
 
 
 def test_kernel_holds_the_narrow_side_its_shared_memory_allows():
-    """The rows stay in shared memory, with two edge words a row and group
-    when lc takes more than one pass: past 4,842-byte rows at G = 32 they
-    no longer fit, and sw_layout counts the edges when it picks G."""
-    assert tsw.kernel_holds(150, 152) and tsw.kernel_holds(1280, 1280)
-    assert tsw.kernel_holds(4842, 5000) and not tsw.kernel_holds(4843, 5000)
-    with pytest.raises(ValueError):
-        tsw.sw_layout(5120, 4843, 5000)
-    for lr, lc in ((600, 2000), (2000, 2000), (4842, 5000), (1280, 1281), (512, 20)):
+    """The tier choice.  The rows stay in shared memory, with two edge words
+    a row and group when lc takes more than one pass, up to 4,842-byte rows
+    at G = 32 (today's G, S and passes; sw_layout counts the edges when it
+    picks G); past that the rows and one edge word a row go to a global
+    scratch ("global"), and past 32,767-byte rows the lanes are 32 bits
+    ("int32").  The scratch of a launch stays at or under 1 GiB."""
+    for lr, lc in ((600, 2000), (2000, 2000), (4842, 5000), (1280, 1281), (512, 20),
+                   (150, 152), (1280, 1280)):
         for p in (2, 5120):
-            g, s, passes = tsw.sw_layout(p, lr, lc)
-            assert g * s * passes >= lc
+            g, s, passes, tier = tsw.sw_layout(p, lr, lc)
+            assert tier == "shared" and g * s * passes >= lc
             ng = 128 // g
             smem = 4 * (ng * (lr | 1) + (2 * ng * lr if passes > 1 else 0))
             assert smem <= tsw._SMEM, (lr, lc, p, g)
+            assert tsw.sw_scratch_bytes(p, lr, lc) == 0
+    assert tsw.sw_layout(5120, 150, 152) == (32, 5, 1, "shared")  # the main path
+    assert tsw.sw_layout(2, 4842, 5000) == (32, 40, 4, "shared")
     # 5,000-byte rows: their A words alone fit at G 32 (80 KB), not with
     # the edges between passes (240 KB)
     assert 4 * 4 * 5001 <= tsw._SMEM < 4 * (4 * 5001 + 8 * 5000)
-    with pytest.raises(ValueError):
-        tsw.sw_layout(2, 5000, 5000)
+    for lr, lc in ((4843, 5000), (5000, 5000), (14600, 14600), (32767, 32767),
+                   (32768, 32800)):
+        tier = "global" if lr <= 32767 else "int32"
+        for p in (1, 2, 4000):
+            g, s, passes, got = tsw.sw_layout(p, lr, lc)
+            assert (g, got, passes) == (32, tier, -(-lc // 1280)) and s in (32, 40)
+            pairs_a_group = 1 if tier == "int32" else 2
+            blocks = -(-p // (4 * pairs_a_group))
+            assert tsw.sw_scratch_bytes(p, lr, lc) == blocks * 4 * 4 * ((lr | 1) + lr)
+    # a launch's scratch is bounded: 4,092 pairs of 32,768 x 32,800 take
+    # 1,072,709,616 bytes, so 5,120 of them run in two launches
+    assert tsw.sw_scratch_bytes(5120, 32768, 32800) == 1_072_709_616 <= 1 << 30
+    assert tsw._launch_split(5120, 32768, 32, "int32") == (4092, 1_072_709_616)
+    assert tsw.sw_scratch_bytes(10**6, 5000, 5000) <= 1 << 30
+    assert tsw._launch_split(5120, 6000, 32, "global")[0] == 5120  # the 6 kb rerank: one
+
+
+@pytest.mark.parametrize("lr", [4843, 5000])
+def test_wide_both_sides_match_jax(lr):
+    """Pairs wider than shared memory holds on both sides (the "global"
+    tier on the card): a ragged batch with reads planted in their windows
+    (1% substitutions) scores through the port as through the JAX package's
+    sw_scores, exactly."""
+    rng = np.random.default_rng(lr)
+    p, lc = 5, 5000
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    a = acgt[rng.integers(0, 4, (p, lr))]
+    b = acgt[rng.integers(0, 4, (p, lc))]
+    n = lr - 300
+    b[::2, 100:100 + n] = a[::2, 200:200 + n]
+    mask = rng.random((p, lc)) < 0.01
+    b[mask] = acgt[rng.integers(0, 4, int(mask.sum()))]
+    la, lb = np.full(p, lr), np.full(p, lc)
+    la[1], lb[3], lb[4] = 3000, 4321, 0
+    assert tsw.sw_layout(p, lr, lc)[3] == "global"
+    got = _port(a, la, b, lb)
+    np.testing.assert_array_equal(got, jsw.sw_scores(a, la, b, lb))
+    assert got[0] > 0.9 * n and got[4] == 0
+
+
+def test_post_process_sw_wide_windows_matches_jax():
+    """The SW rerank at windows of 4,900 bytes against reads of 4,900
+    (wrapped: 4,902): the pairs of the "global" tier on the card.  A seeded
+    ~20 kbp genome, reads cut from it on either strand (1% substitutions),
+    neighbors given directly (the true window, shifted ones, random ones, a
+    missing one), so no encoder runs; against the JAX package's
+    post_process_sw under test_post_process_sw_matches_jax's invalid-slot
+    rule."""
+    rng = np.random.default_rng(11)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", np.uint8)
+    glen, ref_len, nq, kc = 20_000, 4_900, 4, 5
+    genome = acgt[rng.integers(0, 4, glen)]
+    bound = 2 * (glen - ref_len + 1)
+    true = rng.integers(0, bound, nq)
+    reads = []
+    for wid in true:
+        r = genome[wid >> 1:(wid >> 1) + ref_len].copy()
+        if wid & 1:
+            r = comp[r[::-1]]
+        mask = rng.random(ref_len) < 0.01
+        r[mask] = acgt[rng.integers(0, 4, int(mask.sum()))]
+        reads.append("<" + r.tobytes().decode() + ">")
+    q_mat, q_lens = strings_to_bytes(reads)
+    neighbors = rng.integers(0, bound, (nq, kc)).astype(np.int64)
+    neighbors[:, 1] = true
+    neighbors[:, 3] = np.clip(true + 2 * 37, 0, bound - 1)  # the true window shifted
+    neighbors[0, 4] = -1                                    # a missing hit
+    neighbors[2, 0] = neighbors[2, 2]                       # duplicate hits tie
+
+    def fetch(ids):
+        return fasta_io.fetch_windows_by_id(genome, ids, ref_len, max_len=ref_len)
+
+    assert tsw.sw_layout(nq * kc, ref_len, ref_len + 2)[3] == "global"
+    args = (neighbors, q_mat, q_lens, fetch, 1)
+    ji, js = jpp.post_process_sw(*args, kc, kc, bound)
+    jinv = js == _INT32_MIN
+    assert jinv.any()
+    k = kc - 1
+    order = np.argsort(jinv, axis=1, kind="stable")[:, :k]
+    ti, ts = tpp.post_process_sw(*args, k, kc, bound, device="cpu")
+    np.testing.assert_array_equal(ti, np.take_along_axis(ji, order, axis=1))
+    np.testing.assert_array_equal(ts, np.take_along_axis(js, order, axis=1))
+    # the read's own window wins, scoring near its length
+    np.testing.assert_array_equal(ti[:, 0], true)
+    assert (ts[:, 0] > 0.9 * ref_len).all()
 
 
 def test_cli_sw_rerank_at_ref_len_600_matches_jax(data_dir, tmp_path):
