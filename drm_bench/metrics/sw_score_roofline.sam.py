@@ -1,0 +1,8 @@
+"""sw_score's share of its roofline: the least time of the window's work for
+it (roofline/sw_score.py) over the seconds the device trace shows it ran."""
+
+from drm_bench.metrics import _work
+
+
+def read(ctx):
+    return _work.roofline(ctx, "sw_score")
