@@ -1474,16 +1474,13 @@ def phase_genome_pq(results: dict):
                              f"recall@10 {recall})")
     pqflat = {"sim": (ref, fq, starts, strands, mat), "idx": idx, "top1": pq_top1}
 
-    # the SW rerank split: host fetch/sort and upload+score+download from
-    # the pipeline's own line, the kernel alone by CUDA events on as many
-    # pairs of the same widths
-    split = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[MAIN] sw rerank")]
+    # the SW kernel alone by CUDA events on as many pairs of the same
+    # widths (the rerank's host split: the post.sw.* spans of a traced run)
     p = N_READS * 10
     a, la, b, lb = (torch.from_numpy(x).cuda()
                     for x in _sw_pairs(np.random.default_rng(4), p))
     t_sw = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 3)
-    log(f"[genome_pq] {split[0][7:] if split else 'no sw line'}; the kernel alone on "
-        f"{p} pairs: {t_sw:.2f} ms (CUDA events)")
+    log(f"[genome_pq] the SW kernel alone on {p} pairs: {t_sw:.2f} ms (CUDA events)")
 
     # steady state: the same embed + search again, index already resident
     engine, _ = load_index(idx)

@@ -101,8 +101,9 @@ def _add_pipeline(sub):
                    help="@RG header + RG:Z tag on every line; fields with a "
                         "required ID: (e.g. 'ID:run1,SM:sampleA')")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the query "
-                        "embed and the search into DIR")
+                   help="write a torch.profiler Chrome trace of the request "
+                        "(embed, search, post-processing, files, with the "
+                        "tracer's spans) into DIR")
     p.add_argument("--long-reads", action="store_true",
                    help="map reads longer than the index window by chunk -> "
                         "search -> chain voting; chained read-start "

@@ -24,6 +24,7 @@ from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.index.registry import register_index
 from deepreadmapper_tpu_torch.ops import scan_kernel as sk
 from deepreadmapper_tpu_torch.ops.topk import as_f32, merge_smallest_k, smallest_k
+from deepreadmapper_tpu_torch.utils import trace
 
 _BIGF = 3.4e38
 
@@ -91,42 +92,49 @@ def search_quantized(queries: np.ndarray, k: int, ntotal: int, code_scale: float
 
     Queries quantize with their own scale when the batch exceeds the code
     scale (query_scale_ratio; the ratio folds into the score) and run in
-    q_batch slices.  fused(q8, k, ratio) -> (rn - 2r q.r, ids) is the
-    window-min scan over the store; when it is None, chunks() yields the
-    (first row, int8 rows, norms) chunks of the exact scan.  Returns
-    (ids [Q, k] int64, fp32 squared-L2 estimates [Q, k]); past ntotal the
-    columns are -1 / inf."""
+    q_batch slices: spans search.quantize, search.scan (the enqueue of
+    every slice) and search.fetch (host work left for while the card
+    scans, then the reads that wait on it).  fused(q8, k, ratio) ->
+    (rn - 2r q.r, ids) is the window-min scan over the store; when it is
+    None, chunks() yields the (first row, int8 rows, norms) chunks of the
+    exact scan.  Returns (ids [Q, k] int64, fp32 squared-L2 estimates
+    [Q, k]); past ntotal the columns are -1 / inf."""
     nq = queries.shape[0]
     if ntotal == 0:
         return (np.full((nq, k), -1, np.int64), np.full((nq, k), np.inf, np.float32))
     k_eff = min(k, ntotal)
-    sq, ratio = query_scale_ratio(queries, code_scale)
-    q8_all = quantize_host(queries, sq)
+    with trace.span("search.quantize"):
+        sq, ratio = query_scale_ratio(queries, code_scale)
+        q8_all = quantize_host(queries, sq)
     pending = []
-    for s in range(0, nq, q_batch):
-        e = min(s + q_batch, nq)
-        qb = q8_all[s:e]
-        if fused is not None:
-            width = q_batch if nq > q_batch else (e - s + (-(e - s)) % sk.QT)
-            if qb.shape[0] < width:
-                qb = np.pad(qb, ((0, width - qb.shape[0]), (0, 0)))
-            res = fused(torch.from_numpy(qb).to(device), k_eff, ratio)
-        else:
-            res = _int8_topk(torch.from_numpy(qb).to(device), chunks(), ntotal,
-                             k_eff, ratio)
-        pending.append((s, e, res))
+    with trace.span("search.scan"):
+        for s in range(0, nq, q_batch):
+            e = min(s + q_batch, nq)
+            qb = q8_all[s:e]
+            if fused is not None:
+                width = q_batch if nq > q_batch else (e - s + (-(e - s)) % sk.QT)
+                if qb.shape[0] < width:
+                    qb = np.pad(qb, ((0, width - qb.shape[0]), (0, 0)))
+                res = fused(torch.from_numpy(qb).to(device), k_eff, ratio)
+            else:
+                res = _int8_topk(torch.from_numpy(qb).to(device), chunks(), ntotal,
+                                 k_eff, ratio)
+            pending.append((s, e, res))
     d = np.empty((nq, k_eff), np.float32)
     i = np.empty((nq, k_eff), np.int64)
     s2 = np.float32(code_scale) ** 2
-    qn_all = (q8_all.astype(np.int64) ** 2).sum(1).astype(np.float32)
-    for s, e, (db, ib) in pending:
-        # quantized-space scores -> fp32 squared L2 estimate; the fused
-        # scan returns rn - 2(sq/sc) q.r, so add the scaled query norm
-        db = db.cpu().numpy()[: e - s]
-        if fused is not None:
-            db = db + (ratio * ratio) * qn_all[s:e, None]
-        d[s:e] = db * s2
-        i[s:e] = ib.cpu().numpy()[: e - s]
+    with trace.span("search.fetch"):
+        # the query norms on the host while the card scans, then the reads
+        # that wait on it
+        qn_all = (q8_all.astype(np.int64) ** 2).sum(1).astype(np.float32)
+        for s, e, (db, ib) in pending:
+            # quantized-space scores -> fp32 squared L2 estimate; the fused
+            # scan returns rn - 2(sq/sc) q.r, so add the scaled query norm
+            db = db.cpu().numpy()[: e - s]
+            if fused is not None:
+                db = db + (ratio * ratio) * qn_all[s:e, None]
+            d[s:e] = db * s2
+            i[s:e] = ib.cpu().numpy()[: e - s]
     if k_eff < k:
         d = np.pad(d, ((0, 0), (0, k - k_eff)), constant_values=np.inf)
         i = np.pad(i, ((0, 0), (0, k - k_eff)), constant_values=-1)

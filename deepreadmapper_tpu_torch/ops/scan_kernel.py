@@ -26,6 +26,7 @@ import torch
 from deepreadmapper_tpu_torch import kernels
 from deepreadmapper_tpu_torch.ops.pq import reconstruct8
 from deepreadmapper_tpu_torch.ops.topk import merge_smallest_k, smallest_k
+from deepreadmapper_tpu_torch.utils import trace
 
 QT = 512      # query padding unit of the fused path
 CT = 4096     # candidate padding unit below _PAD_BASE rows
@@ -229,15 +230,24 @@ def fused_scan_topk(q8, store, ntotal: int, k: int, chunk: int, ratio=1.0,
     The top-k over window minima is exact and stable (the lower window wins
     ties).  winmin selects the scan (default: the kernel wrapper of the
     store's kind, int8_winmin or pq_winmin), called as
-    winmin(q8, rows[, cent8], ntotal, ratio2, w)."""
+    winmin(q8, rows[, cent8], ntotal, ratio2, w).
+
+    While the tracer records, a CUDA event pair around each chunk's
+    selection (smallest_k, gather, merge_smallest_k) adds its time to
+    ``select_device_ms`` of the span open at the call (``search.scan`` on
+    the served path)."""
     np_ = store.shape[0]
     ratio2 = 2.0 * float(np.float32(ratio))  # exact: the kernel takes fp32
     if winmin is None:
         winmin = int8_winmin if cent8 is None else pq_winmin
     extra = () if cent8 is None else (cent8,)
+    timed = q8.is_cuda and trace.recording()
     best_d = best_i = None
     for c0 in range(0, np_, chunk):
         vals, args = winmin(q8, store[c0 : c0 + chunk], *extra, ntotal - c0, ratio2, w)
+        if timed:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
         # [chunk/W, Qp] -> [Qp, chunk/W]
         d, pos = smallest_k(vals.T, k)
         i = torch.gather(args.T, 1, pos).to(torch.int64) + c0
@@ -245,4 +255,7 @@ def fused_scan_topk(q8, store, ntotal: int, k: int, chunk: int, ratio=1.0,
             best_d, best_i = d, i
         else:
             best_d, best_i = merge_smallest_k(best_d, best_i, d, i, k)
+        if timed:
+            ev[1].record()
+            trace.device_interval("select_device_ms", *ev)
     return best_d, best_i

@@ -12,14 +12,13 @@ sort FIRST; here they sort last.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from deepreadmapper_tpu_torch import resolve_device
 from deepreadmapper_tpu_torch.ops.sw import sw_scores
 from deepreadmapper_tpu_torch.ops.topk import as_f32, smallest_k
+from deepreadmapper_tpu_torch.utils import trace
 
 _INT32_MIN = np.iinfo(np.int32).min
 
@@ -119,7 +118,6 @@ def post_process_sw(
     sparse_off: np.ndarray | None = None,
     dense_off: np.ndarray | None = None,
     device: torch.device | str | None = None,
-    timings: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Smith-Waterman post-processing (reference post_process_sw_*): expand
     sparse hits, score every candidate slot by SW against the wrapped query
@@ -131,57 +129,54 @@ def post_process_sw(
     fetch_windows: callable(ids [M]) -> (bytes [M, W], lens [M]) unwrapped
       candidate windows (host).
     device: where the scores run (default: the CUDA device when present).
-    timings: if given, gets host seconds under "fetch" (window fetch and
-      pair layout), "sw" (upload, scoring, download) and "sort".
+
+    Spans (utils.trace): post.sw.fetch (the expansion, each chunk's window
+    fetch and pair layout), post.sw.score (upload, scoring, download) and
+    post.sw.sort, one of each a chunk of query_chunk reads.
 
     Invalid slots score INT32_MIN and sort last; the sort is stable, so
     ties keep candidate order.  Returns (final_ids [Q, k] int64,
     final_scores [Q, k] int32).
     """
     check_invariant(k, k_clusters, stride)
-    if stride == 1:
-        if k > k_clusters:
-            raise ValueError(
-                f"Final k={k} > k_clusters={k_clusters}: the dense SW rerank "
-                "has only k_clusters candidates per query."
-            )
-        cand_ids = neighbors[:, :k_clusters].astype(np.int64)
-    else:
-        cand_ids, _ = expand_candidates(
-            neighbors, stride, bound, k_clusters, sparse_off, dense_off
+    if stride == 1 and k > k_clusters:
+        raise ValueError(
+            f"Final k={k} > k_clusters={k_clusters}: the dense SW rerank "
+            "has only k_clusters candidates per query."
         )
+    with trace.span("post.sw.fetch"):
+        if stride == 1:
+            cand_ids = neighbors[:, :k_clusters].astype(np.int64)
+        else:
+            cand_ids, _ = expand_candidates(
+                neighbors, stride, bound, k_clusters, sparse_off, dense_off
+            )
     dev = resolve_device(device)
-    t = {"fetch": 0.0, "sw": 0.0, "sort": 0.0}
     q, c = cand_ids.shape
     out_ids = np.empty((q, k), dtype=np.int64)
     out_scores = np.empty((q, k), dtype=np.int32)
     for start in range(0, q, query_chunk):
-        t0 = time.perf_counter()
-        end = min(start + query_chunk, q)
-        ids_b = cand_ids[start:end]
-        flat_ids = ids_b.ravel()
-        valid = flat_ids >= 0
-        w_mat, w_lens = fetch_windows(np.where(valid, flat_ids, 0))
-        qa = np.repeat(query_mat[start:end], c, axis=0)
-        ql = np.repeat(query_lens[start:end], c, axis=0)
-        t1 = time.perf_counter()
-        scores = sw_scores(
-            torch.from_numpy(np.ascontiguousarray(w_mat)).to(dev),
-            torch.from_numpy(np.asarray(w_lens)).to(dev),
-            torch.from_numpy(qa).to(dev),
-            torch.from_numpy(np.asarray(ql)).to(dev),
-        ).cpu().numpy()
-        t2 = time.perf_counter()
-        scores = np.where(valid, scores, np.int32(_INT32_MIN)).reshape(end - start, c)
-        # int64 negation: -INT32_MIN does not wrap, so invalid slots sort last
-        order = np.argsort(-scores.astype(np.int64), axis=1, kind="stable")[:, :k]
-        out_scores[start:end] = np.take_along_axis(scores, order, axis=1)
-        out_ids[start:end] = np.take_along_axis(ids_b, order, axis=1)
-        t["fetch"] += t1 - t0
-        t["sw"] += t2 - t1
-        t["sort"] += time.perf_counter() - t2
-    if timings is not None:
-        timings.update(t)
+        with trace.span("post.sw.fetch"):
+            end = min(start + query_chunk, q)
+            ids_b = cand_ids[start:end]
+            flat_ids = ids_b.ravel()
+            valid = flat_ids >= 0
+            w_mat, w_lens = fetch_windows(np.where(valid, flat_ids, 0))
+            qa = np.repeat(query_mat[start:end], c, axis=0)
+            ql = np.repeat(query_lens[start:end], c, axis=0)
+        with trace.span("post.sw.score"):
+            scores = sw_scores(
+                torch.from_numpy(np.ascontiguousarray(w_mat)).to(dev),
+                torch.from_numpy(np.asarray(w_lens)).to(dev),
+                torch.from_numpy(qa).to(dev),
+                torch.from_numpy(np.asarray(ql)).to(dev),
+            ).cpu().numpy()
+        with trace.span("post.sw.sort"):
+            scores = np.where(valid, scores, np.int32(_INT32_MIN)).reshape(end - start, c)
+            # int64 negation: -INT32_MIN does not wrap, so invalid slots sort last
+            order = np.argsort(-scores.astype(np.int64), axis=1, kind="stable")[:, :k]
+            out_scores[start:end] = np.take_along_axis(scores, order, axis=1)
+            out_ids[start:end] = np.take_along_axis(ids_b, order, axis=1)
     return out_ids, out_scores
 
 

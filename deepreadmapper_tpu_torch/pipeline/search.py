@@ -42,6 +42,7 @@ from deepreadmapper_tpu_torch.pipeline import postprocess as pp
 from deepreadmapper_tpu_torch.pipeline.paired import PAD_ID, rescue_mates, resolve_pairs
 from deepreadmapper_tpu_torch.tokenizer_device import pack_wrapped_numpy
 from deepreadmapper_tpu_torch.utils.progress import Progress
+from deepreadmapper_tpu_torch.utils import trace
 from deepreadmapper_tpu_torch.utils.trace import device_trace
 
 _CIGAR_RUN = re.compile(r"(\d+)([MID])")
@@ -52,7 +53,9 @@ def _load_queries(path: str, vectorizer: Vectorizer, embed: bool = True):
 
     embed=False skips the encoder pass and returns no embeddings: long-read
     requests embed chunks, not whole reads (a whole-read embedding covers
-    only the first ~121 bases)."""
+    only the first ~121 bases).  FASTQ queries run in the spans embed.parse
+    (the parse and the read strings; counter reads) and
+    embed.encode (upload, device tokenizer, #1, the result's fetch)."""
     ext = true_ext(path)
     if ext == ".npy":
         return load_embeddings_npy(path), None, []
@@ -60,10 +63,13 @@ def _load_queries(path: str, vectorizer: Vectorizer, embed: bool = True):
         if not embed:
             seqs, ids = parse_fastq(path)
             return None, seqs, ids
-        mat, lengths, ids = parse_fastq_bytes(path)
-        # 48-byte wire upload + device tokenizer
-        emb = vectorizer.vectorize_wrapped_bytes(mat, lengths)
-        seqs = [bytes(row[: int(n)]).decode() for row, n in zip(mat, lengths)]
+        with trace.span("embed.parse"):
+            mat, lengths, ids = parse_fastq_bytes(path)
+            seqs = [bytes(row[: int(n)]).decode() for row, n in zip(mat, lengths)]
+            trace.count("reads", len(seqs))
+        with trace.span("embed.encode"):
+            # 48-byte wire upload + device tokenizer
+            emb = vectorizer.vectorize_wrapped_bytes(mat, lengths)
         return emb, seqs, ids
     if ext in FASTA_EXTS or ext == ".txt":
         if ext == ".txt":
@@ -235,10 +241,10 @@ def _search(engine, query_emb, k_clusters, ef, search_stats):
 
 
 def _profiler(profile_dir: str | None, device):
-    """torch.profiler over the embed and the search (host and, on a card,
-    device activity), or a null context.  The JAX package traces the
-    search with jax.profiler; here the trace also covers the query embed,
-    so it shows both kernels of the main path."""
+    """torch.profiler over the whole request after the index load (host
+    and, on a card, device activity, with the tracer's spans), or a null
+    context.  The JAX package traces the search with jax.profiler; here
+    the trace also covers the embed, the post-processing and the files."""
     if not profile_dir:
         return contextlib.nullcontext()
     return device_trace(profile_dir, "pipeline.pt.trace.json", cuda=device.type == "cuda")
@@ -366,7 +372,8 @@ def run_pipeline(
     qualities), read_group (@RG + RG:Z), sort, mark_dups, bam (results.bam,
     with a .bai when sorted).  use_streaming reranks and appends the SAM
     per search_cfg.query_batch_size reads, and saves no npy.  profile_dir
-    writes a torch.profiler Chrome trace of the embed and the search.
+    writes a torch.profiler Chrome trace of the request, its spans
+    included.
     preloaded=(engine, config) skips the index load (the serve daemon).
     device defaults to the CUDA device (raises without one).
 
@@ -376,7 +383,13 @@ def run_pipeline(
     supplementary lines for split reads, cigar=True banded-aligns the
     primaries, and indices.npy / distances.npy hold the chained ids and
     1 - chunk-support fraction.  The returned t_lr_split splits its time
-    into host_pack / embed / search / chain."""
+    into host_pack / embed / search / chain.
+
+    Spans (utils.trace): pipeline.index, pipeline.embed, pipeline.search,
+    pipeline.post (children post.fasta, post.l2 or post.sw.fetch /
+    post.sw.score / post.sw.sort, post.sam, post.finish, or
+    post.long_reads) and write.npy; the returned t_embed, t_search and
+    t_post are the three pipeline spans' seconds."""
     if rerank not in ("l2", "sw"):
         raise ValueError(f"unknown rerank {rerank!r} (l2 | sw)")
     device = resolve_device(device)
@@ -384,279 +397,287 @@ def run_pipeline(
     ef = ef if ef is not None else scfg.ef
     k = k if k is not None else scfg.k
 
-    t0 = time.time()
-    engine, config = preloaded if preloaded else load_index(index_prefix, device)
+    with trace.span("pipeline.index") as index_span:
+        engine, config = preloaded if preloaded else load_index(index_prefix, device)
     ref_len = int(config["ref_len"])
     stride = int(config["stride"])
     if stride == 1:
         k_clusters = k
     elif k_clusters is None:
         k_clusters = scfg.k_clusters
-    t_index = time.time() - t0
 
     vectorizer = vectorizer_for_index(index_prefix, config, vectorizer, device)
     with _profiler(profile_dir, device):
-        t0 = time.time()
-        query_emb, query_seqs, query_ids = _load_queries(query_file, vectorizer,
-                                                         embed=not long_reads)
-        t_embed = time.time() - t0
-        t0 = time.time()
-        neighbors = distances = None
-        if not long_reads:
-            # the long-read path searches its chunk batch below instead
-            neighbors, distances = _search(engine, query_emb, k_clusters, ef,
-                                           search_stats)
-        t_search = time.time() - t0
+        with trace.span("pipeline.embed") as embed_span:
+            query_emb, query_seqs, query_ids = _load_queries(query_file, vectorizer,
+                                                             embed=not long_reads)
+        with trace.span("pipeline.search") as search_span:
+            neighbors = distances = None
+            if not long_reads:
+                # the long-read path searches its chunk batch below instead
+                neighbors, distances = _search(engine, query_emb, k_clusters, ef,
+                                               search_stats)
 
-    # Under a process group every rank runs the same pipeline (the same
-    # reads, the sharded search merged on every rank); only rank 0 writes
-    # the output files.  write_sam keeps its role in the control flow (the
-    # streaming fallback below): the other ranks still run per batch and
-    # skip the writes.
-    is_main = dist_.is_main()
-    sam_out = write_sam and is_main
-    os.makedirs(output_dir, exist_ok=True)
-    sam_file = os.path.join(output_dir, "results.sam")
-    have_seqs = query_seqs is not None
-    if use_streaming and not write_sam:
-        # streaming exists to bound SAM memory; without SAM it would rerank
-        # per batch and emit nothing at all
-        print("[MAIN] WARNING: use_streaming without SAM output has nothing to "
-              "stream; falling back to the non-streaming path")
-        use_streaming = False
-    if cigar and not have_seqs:
-        print("[MAIN] WARNING: --cigar ignored (precomputed query embeddings "
-              "carry no sequences to align)")
-        cigar = False
-    if mapq and not have_seqs:
-        print("[MAIN] WARNING: --mapq ignored (no SAM output without query "
-              "sequences)")
-        mapq = False
-    if long_reads:
-        if not have_seqs:
-            raise ValueError(
-                "--long-reads needs query SEQUENCES (precomputed embeddings "
-                "only cover the first ~121 bases of each read)")
-        if cigar and not native.available():
-            print("[MAIN] WARNING: --cigar needs the native library (banded "
-                  "long-read aligner); skipping")
+        # Under a process group every rank runs the same pipeline (the same
+        # reads, the sharded search merged on every rank); only rank 0 writes
+        # the output files.  write_sam keeps its role in the control flow (the
+        # streaming fallback below): the other ranks still run per batch and
+        # skip the writes.
+        is_main = dist_.is_main()
+        sam_out = write_sam and is_main
+        os.makedirs(output_dir, exist_ok=True)
+        sam_file = os.path.join(output_dir, "results.sam")
+        have_seqs = query_seqs is not None
+        if use_streaming and not write_sam:
+            # streaming exists to bound SAM memory; without SAM it would rerank
+            # per batch and emit nothing at all
+            print("[MAIN] WARNING: use_streaming without SAM output has nothing to "
+                  "stream; falling back to the non-streaming path")
+            use_streaming = False
+        if cigar and not have_seqs:
+            print("[MAIN] WARNING: --cigar ignored (precomputed query embeddings "
+                  "carry no sequences to align)")
             cigar = False
-        for flag, name, why in (
-                (use_streaming, "use_streaming", ""),
-                (rerank == "sw", "--rerank sw", " (placements are chunk-support "
-                 "chains, not SW-reranked)"),
-                (dense_rerank, "--dense-rerank", "")):
-            if flag:
-                print(f"[MAIN] WARNING: {name} ignored with --long-reads{why}")
-        use_streaming, rerank, dense_rerank = False, "l2", False
-        # support-margin MAPQ is intrinsic to chain voting: long-read
-        # primaries and their supplementaries always score on that scale
-        mapq = True
-    if dense_rerank and stride == 1 and (not have_seqs or rerank == "sw"):
-        print("[MAIN] WARNING: --dense-rerank ignored ("
-              + ("precomputed query embeddings carry no sequences"
-                 if not have_seqs else "SW rerank already reranks at stride 1")
-              + "); saving raw search results")
-    quals = None
-    if qual:
-        if have_seqs and true_ext(query_file) in FASTQ_EXTS:
-            quals = parse_fastq_quals(query_file)
-        else:
-            print("[MAIN] WARNING: --qual needs FASTQ queries; ignored")
-    pg = (f"pipeline {index_prefix} {query_file} ef={ef} k={k}"
-          f" k_clusters={k_clusters} rerank={rerank}"
-          + (" dense_rerank" if dense_rerank else "")
-          + (" cigar" if cigar else "")
-          + (" mapq" if mapq else "")
-          + (" long_reads" if long_reads else ""))
-
-    t0 = time.time()
-    final_ids = final_d = None
-    records = None
-    lr_timings = None
-    if have_seqs:
-        records = fasta_io.parse_fasta_records(ref_file)
-        multi = len(records) > 1
-        if multi:
-            if use_dynamic:
-                print("[MAIN] WARNING: use_dynamic has no separate meaning for "
-                      "multi-record references; using record-aware static "
-                      "handling")
-            # window ids are per-record cumulative window counts; fetches
-            # address the concatenated base stream
-            genome = np.concatenate(records)
-            dense_off, base_off = fasta_io.record_window_table(records, ref_len, 1)
-            sparse_off, _ = fasta_io.record_window_table(records, ref_len, stride)
-            bound = 2 * int(dense_off[-1])
-            rec_names = fasta_io.parse_fasta_names(ref_file)
-            rec_lens = [int(len(r)) for r in records]
-        else:
-            genome = (
-                records[0] if len(records) == 1
-                else fasta_io.extract_fasta_sequence(ref_file)
-            )
-            dense_off = sparse_off = base_off = None
-            rec_names = rec_lens = None
-            if use_dynamic:
-                bound = int(genome.size)
-            else:
-                # number of dense windows x 2 strands
-                bound = 2 * max(0, int(genome.size) - ref_len + 1)
-        sam_kw = dict(record_names=rec_names, record_lens=rec_lens,
-                      dense_off=dense_off, pg=pg, quals=quals, rg=read_group)
-
-        def embed_windows(unique_ids: np.ndarray):
-            if multi:
-                unique_ids = fasta_io.translate_window_ids(
-                    unique_ids, dense_off, base_off
-                )
-            # candidates are re-embedded WRAPPED, the space the index was
-            # built in; the pool stays on the device for the rerank
-            if vectorizer.max_len != tok.MAX_LEN:
-                mat, lengths = fasta_io.fetch_windows_by_id(
-                    genome, unique_ids, ref_len, vectorizer.max_len, wrap=True
-                )
-                return vectorizer.vectorize_tokens(
-                    tok.tokenize_bytes_fast(mat, lengths, vectorizer.max_len),
-                    device_out=True)
-            if native.available():
-                wire = native.pack_windows_by_id(genome, ref_len, unique_ids)
-            else:
-                mat, lengths = fasta_io.fetch_windows_by_id(
-                    genome, unique_ids, ref_len, tok.MAX_LEN, wrap=True
-                )
-                wire = pack_wrapped_numpy(mat, lengths)
-            return vectorizer.vectorize_wire(wire, device_out=True)
-
-        def cigars_of(seqs, primary_ids):
-            return _primary_alignment_cigars(seqs, primary_ids, genome, ref_len,
-                                             multi, dense_off, base_off)
-
+        if mapq and not have_seqs:
+            print("[MAIN] WARNING: --mapq ignored (no SAM output without query "
+                  "sequences)")
+            mapq = False
         if long_reads:
-            t1 = time.time()
-            final_ids, final_d, lr_timings = _map_long(
-                query_seqs, query_ids, vectorizer, engine, genome, ref_len, k, ef,
-                stride, lr_max_chunks, multi, dense_off, sparse_off, base_off,
-                sam_file if sam_out else None, cigar, sam_kw)
-            t_search = time.time() - t1
-        elif rerank == "sw":
-            def fetch_windows(ids: np.ndarray):
-                if multi:
-                    ids = fasta_io.translate_window_ids(ids, dense_off, base_off)
-                return fasta_io.fetch_windows_by_id(
-                    genome, ids, ref_len, max_len=ref_len, wrap=False
-                )
+            if not have_seqs:
+                raise ValueError(
+                    "--long-reads needs query SEQUENCES (precomputed embeddings "
+                    "only cover the first ~121 bases of each read)")
+            if cigar and not native.available():
+                print("[MAIN] WARNING: --cigar needs the native library (banded "
+                      "long-read aligner); skipping")
+                cigar = False
+            for flag, name, why in (
+                    (use_streaming, "use_streaming", ""),
+                    (rerank == "sw", "--rerank sw", " (placements are chunk-support "
+                     "chains, not SW-reranked)"),
+                    (dense_rerank, "--dense-rerank", "")):
+                if flag:
+                    print(f"[MAIN] WARNING: {name} ignored with --long-reads{why}")
+            use_streaming, rerank, dense_rerank = False, "l2", False
+            # support-margin MAPQ is intrinsic to chain voting: long-read
+            # primaries and their supplementaries always score on that scale
+            mapq = True
+        if dense_rerank and stride == 1 and (not have_seqs or rerank == "sw"):
+            print("[MAIN] WARNING: --dense-rerank ignored ("
+                  + ("precomputed query embeddings carry no sequences"
+                     if not have_seqs else "SW rerank already reranks at stride 1")
+                  + "); saving raw search results")
+        quals = None
+        if qual:
+            if have_seqs and true_ext(query_file) in FASTQ_EXTS:
+                quals = parse_fastq_quals(query_file)
+            else:
+                print("[MAIN] WARNING: --qual needs FASTQ queries; ignored")
+        pg = (f"pipeline {index_prefix} {query_file} ef={ef} k={k}"
+              f" k_clusters={k_clusters} rerank={rerank}"
+              + (" dense_rerank" if dense_rerank else "")
+              + (" cigar" if cigar else "")
+              + (" mapq" if mapq else "")
+              + (" long_reads" if long_reads else ""))
 
-            q_mat, q_lens = tok.strings_to_bytes(query_seqs)
-            sw_timings = {}
-            final_ids, final_d = pp.post_process_sw(
-                neighbors, q_mat, q_lens, fetch_windows, stride, k,
-                k_clusters, bound, sparse_off=sparse_off, dense_off=dense_off,
-                device=vectorizer.device, timings=sw_timings,
-            )
-            print(f"[MAIN] sw rerank: fetch {sw_timings['fetch']:.3f}s | "
-                  f"score {sw_timings['sw']:.3f}s | sort {sw_timings['sort']:.3f}s")
-            if sam_out:
-                mq = (compute_mapq(final_ids, final_d, ref_len,
-                                   higher_is_better=True, dense_off=dense_off)
-                      if mapq else None)
-                sam_io.write_sam(query_seqs, query_ids, final_ids.ravel(), "ref",
-                                 ref_len, k, sam_file, mapq=mq, **sam_kw)
-        elif use_streaming:
-            bs = scfg.query_batch_size
-            nq = query_emb.shape[0]
-            sprog = Progress(nq, "[MAIN] rerank+SAM reads")
-            for start in range(0, nq, bs):
-                end = min(start + bs, nq)
-                ids_b, d_b = pp.post_process_l2(
-                    neighbors[start:end], distances[start:end],
-                    query_emb[start:end], embed_windows, stride, k, k_clusters,
-                    bound, force_rerank=dense_rerank, sparse_off=sparse_off,
-                    dense_off=dense_off,
-                )
-                pc = po = mq = pt = None
-                if cigar:
-                    pc_b, po_b, pt_b = cigars_of(query_seqs[start:end], ids_b[:, 0])
-                    if pc_b is not None:
-                        # per-batch lists are indexed by the GLOBAL query
-                        # number inside format_sam_records
-                        pc = [""] * start + pc_b
-                        pt = [""] * start + pt_b
-                        po = np.concatenate([np.zeros(start, np.int64), po_b])
-                if mapq:
-                    mq = np.concatenate([
-                        np.zeros(start, np.int32),
-                        compute_mapq(ids_b, d_b, ref_len, dense_off=dense_off),
-                    ])
-                if sam_out:
-                    sam_io.write_sam(
-                        query_seqs[start:end], query_ids, ids_b.ravel(), "ref",
-                        ref_len, k, sam_file, append=start > 0,
-                        write_header=start == 0, query_offset=start,
-                        primary_cigars=pc, primary_pos_off=po, primary_tags=pt,
-                        mapq=mq, **sam_kw,
+        final_ids = final_d = None
+        records = None
+        lr_timings = None
+        t_long = 0.0
+        with trace.span("pipeline.post") as post_span:
+            if have_seqs:
+                with trace.span("post.fasta"):
+                    records = fasta_io.parse_fasta_records(ref_file)
+                    multi = len(records) > 1
+                    if multi:
+                        if use_dynamic:
+                            print("[MAIN] WARNING: use_dynamic has no separate meaning "
+                                  "for multi-record references; using record-aware "
+                                  "static handling")
+                        # window ids are per-record cumulative window counts;
+                        # fetches address the concatenated base stream
+                        genome = np.concatenate(records)
+                        dense_off, base_off = fasta_io.record_window_table(records,
+                                                                           ref_len, 1)
+                        sparse_off, _ = fasta_io.record_window_table(records, ref_len,
+                                                                     stride)
+                        bound = 2 * int(dense_off[-1])
+                        rec_names = fasta_io.parse_fasta_names(ref_file)
+                        rec_lens = [int(len(r)) for r in records]
+                    else:
+                        genome = (
+                            records[0] if len(records) == 1
+                            else fasta_io.extract_fasta_sequence(ref_file)
+                        )
+                        dense_off = sparse_off = base_off = None
+                        rec_names = rec_lens = None
+                        if use_dynamic:
+                            bound = int(genome.size)
+                        else:
+                            # number of dense windows x 2 strands
+                            bound = 2 * max(0, int(genome.size) - ref_len + 1)
+                sam_kw = dict(record_names=rec_names, record_lens=rec_lens,
+                              dense_off=dense_off, pg=pg, quals=quals, rg=read_group)
+
+                def embed_windows(unique_ids: np.ndarray):
+                    if multi:
+                        unique_ids = fasta_io.translate_window_ids(
+                            unique_ids, dense_off, base_off
+                        )
+                    # candidates are re-embedded WRAPPED, the space the index
+                    # was built in; the pool stays on the device for the rerank
+                    if vectorizer.max_len != tok.MAX_LEN:
+                        mat, lengths = fasta_io.fetch_windows_by_id(
+                            genome, unique_ids, ref_len, vectorizer.max_len, wrap=True
+                        )
+                        return vectorizer.vectorize_tokens(
+                            tok.tokenize_bytes_fast(mat, lengths, vectorizer.max_len),
+                            device_out=True)
+                    if native.available():
+                        wire = native.pack_windows_by_id(genome, ref_len, unique_ids)
+                    else:
+                        mat, lengths = fasta_io.fetch_windows_by_id(
+                            genome, unique_ids, ref_len, tok.MAX_LEN, wrap=True
+                        )
+                        wire = pack_wrapped_numpy(mat, lengths)
+                    return vectorizer.vectorize_wire(wire, device_out=True)
+
+                def cigars_of(seqs, primary_ids):
+                    return _primary_alignment_cigars(seqs, primary_ids, genome, ref_len,
+                                                     multi, dense_off, base_off)
+
+                if long_reads:
+                    with trace.span("post.long_reads") as long_span:
+                        final_ids, final_d, lr_timings = _map_long(
+                            query_seqs, query_ids, vectorizer, engine, genome, ref_len,
+                            k, ef, stride, lr_max_chunks, multi, dense_off, sparse_off,
+                            base_off, sam_file if sam_out else None, cigar, sam_kw)
+                    t_long = long_span.seconds
+                elif rerank == "sw":
+                    def fetch_windows(ids: np.ndarray):
+                        if multi:
+                            ids = fasta_io.translate_window_ids(ids, dense_off, base_off)
+                        return fasta_io.fetch_windows_by_id(
+                            genome, ids, ref_len, max_len=ref_len, wrap=False
+                        )
+
+                    with trace.span("post.sw.fetch"):
+                        q_mat, q_lens = tok.strings_to_bytes(query_seqs)
+                    final_ids, final_d = pp.post_process_sw(
+                        neighbors, q_mat, q_lens, fetch_windows, stride, k,
+                        k_clusters, bound, sparse_off=sparse_off, dense_off=dense_off,
+                        device=vectorizer.device,
                     )
-                sprog.update(end - start)
-            sprog.close()
-        else:
-            final_ids, final_d = pp.post_process_l2(
-                neighbors, distances, query_emb, embed_windows, stride, k,
-                k_clusters, bound, force_rerank=dense_rerank,
-                sparse_off=sparse_off, dense_off=dense_off,
-            )
-            if sam_out:
-                pc = po = mq = pt = None
-                if cigar:
-                    pc, po, pt = cigars_of(query_seqs, final_ids[:, 0])
-                if mapq:
-                    mq = compute_mapq(final_ids, final_d, ref_len,
-                                      dense_off=dense_off)
-                    if mapq_calibrated:
-                        mq = calibrate_mapq(mq)
-                sam_io.write_sam(
-                    query_seqs, query_ids, final_ids.ravel(), "ref", ref_len, k,
-                    sam_file, primary_cigars=pc, primary_pos_off=po,
-                    primary_tags=pt, mapq=mq, **sam_kw,
-                )
-    if sam_out and os.path.exists(sam_file):
-        _finish_sam(sam_file, output_dir, sort, mark_dups, bam)
-    t_post = time.time() - t0
-    if long_reads:
-        t_post -= t_search  # the chain path's search ran inside this timer
+                    if sam_out:
+                        with trace.span("post.sam"):
+                            mq = (compute_mapq(final_ids, final_d, ref_len,
+                                               higher_is_better=True, dense_off=dense_off)
+                                  if mapq else None)
+                            sam_io.write_sam(
+                                query_seqs, query_ids, final_ids.ravel(), "ref",
+                                ref_len, k, sam_file, mapq=mq, **sam_kw)
+                elif use_streaming:
+                    bs = scfg.query_batch_size
+                    nq = query_emb.shape[0]
+                    sprog = Progress(nq, "[MAIN] rerank+SAM reads")
+                    for start in range(0, nq, bs):
+                        end = min(start + bs, nq)
+                        with trace.span("post.l2"):
+                            ids_b, d_b = pp.post_process_l2(
+                                neighbors[start:end], distances[start:end],
+                                query_emb[start:end], embed_windows, stride, k,
+                                k_clusters, bound, force_rerank=dense_rerank,
+                                sparse_off=sparse_off, dense_off=dense_off,
+                            )
+                        with trace.span("post.sam"):
+                            pc = po = mq = pt = None
+                            if cigar:
+                                pc_b, po_b, pt_b = cigars_of(query_seqs[start:end],
+                                                             ids_b[:, 0])
+                                if pc_b is not None:
+                                    # per-batch lists are indexed by the GLOBAL
+                                    # query number inside format_sam_records
+                                    pc = [""] * start + pc_b
+                                    pt = [""] * start + pt_b
+                                    po = np.concatenate([np.zeros(start, np.int64), po_b])
+                            if mapq:
+                                mq = np.concatenate([
+                                    np.zeros(start, np.int32),
+                                    compute_mapq(ids_b, d_b, ref_len, dense_off=dense_off),
+                                ])
+                            if sam_out:
+                                sam_io.write_sam(
+                                    query_seqs[start:end], query_ids, ids_b.ravel(), "ref",
+                                    ref_len, k, sam_file, append=start > 0,
+                                    write_header=start == 0, query_offset=start,
+                                    primary_cigars=pc, primary_pos_off=po,
+                                    primary_tags=pt, mapq=mq, **sam_kw,
+                                )
+                        sprog.update(end - start)
+                    sprog.close()
+                else:
+                    with trace.span("post.l2"):
+                        final_ids, final_d = pp.post_process_l2(
+                            neighbors, distances, query_emb, embed_windows, stride, k,
+                            k_clusters, bound, force_rerank=dense_rerank,
+                            sparse_off=sparse_off, dense_off=dense_off,
+                        )
+                    if sam_out:
+                        with trace.span("post.sam"):
+                            pc = po = mq = pt = None
+                            if cigar:
+                                pc, po, pt = cigars_of(query_seqs, final_ids[:, 0])
+                            if mapq:
+                                mq = compute_mapq(final_ids, final_d, ref_len,
+                                                  dense_off=dense_off)
+                                if mapq_calibrated:
+                                    mq = calibrate_mapq(mq)
+                            sam_io.write_sam(
+                                query_seqs, query_ids, final_ids.ravel(), "ref", ref_len,
+                                k, sam_file, primary_cigars=pc, primary_pos_off=po,
+                                primary_tags=pt, mapq=mq, **sam_kw,
+                            )
+            if sam_out and os.path.exists(sam_file) and (sort or mark_dups or bam):
+                with trace.span("post.finish"):
+                    _finish_sam(sam_file, output_dir, sort, mark_dups, bam)
 
-    # a streamed run's output is its SAM alone, as in the JAX package
-    if not use_streaming and is_main:
-        npys = (os.path.join(output_dir, "indices.npy"),
-                os.path.join(output_dir, "distances.npy"))
-        if long_reads:
-            # chained read-start placements; "distances" are 1 - the
-            # chunk-support fraction (ascending better)
-            save_results(final_ids, final_d, *npys, k)
-        elif dense_rerank and stride == 1 and rerank != "sw" and final_d is not None:
-            save_results(final_ids, final_d, *npys, k)
-        else:
-            # raw search results: k columns dense, k_clusters sparse
-            save_results(neighbors, distances, *npys,
-                         k if stride == 1 else k_clusters)
-    return {
-        "num_queries": (len(query_seqs) if query_emb is None
-                        else int(query_emb.shape[0])),
-        "k": k,
-        "k_clusters": k_clusters,
-        "stride": stride,
-        "neighbors": neighbors,
-        "distances": distances,
-        "final_ids": final_ids,
-        "final_d": final_d,
-        "query_seqs": query_seqs,
-        "query_ids": query_ids,
-        "records": records,
-        "t_index": t_index,
-        "t_embed": t_embed,
-        "t_search": t_search,
-        "t_post": t_post,
-        "t_lr_split": lr_timings,
-    }
+        # a streamed run's output is its SAM alone, as in the JAX package
+        if not use_streaming and is_main:
+            npys = (os.path.join(output_dir, "indices.npy"),
+                    os.path.join(output_dir, "distances.npy"))
+            with trace.span("write.npy"):
+                if long_reads:
+                    # chained read-start placements; "distances" are 1 - the
+                    # chunk-support fraction (ascending better)
+                    save_results(final_ids, final_d, *npys, k)
+                elif (dense_rerank and stride == 1 and rerank != "sw"
+                      and final_d is not None):
+                    save_results(final_ids, final_d, *npys, k)
+                else:
+                    # raw search results: k columns dense, k_clusters sparse
+                    save_results(neighbors, distances, *npys,
+                                 k if stride == 1 else k_clusters)
+        # the long-read path searches inside pipeline.post: t_search is its
+        # post.long_reads span, t_post the rest
+        return {
+            "num_queries": (len(query_seqs) if query_emb is None
+                            else int(query_emb.shape[0])),
+            "k": k,
+            "k_clusters": k_clusters,
+            "stride": stride,
+            "neighbors": neighbors,
+            "distances": distances,
+            "final_ids": final_ids,
+            "final_d": final_d,
+            "query_seqs": query_seqs,
+            "query_ids": query_ids,
+            "records": records,
+            "t_index": index_span.seconds,
+            "t_embed": embed_span.seconds,
+            "t_search": t_long if long_reads else search_span.seconds,
+            "t_post": post_span.seconds - t_long,
+            "t_lr_split": lr_timings,
+        }
 
 
 def _promote(ids, d, chosen):

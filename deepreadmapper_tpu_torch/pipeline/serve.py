@@ -26,6 +26,11 @@ A request with "fastq2" maps the pair (R1 = fastq) through
 run_pipeline_paired; one with "long_reads" through run_pipeline's
 long-read path.  Anything the pipeline prints goes to stderr while
 serving, so the protocol stream stays parseable.
+
+Each line runs in a ``serve.request`` span (utils.trace; recorded while a
+torch profiler runs) from its arrival to its reply written, with the
+request id of the line's "id" (else the line's serial number): children
+``serve.parse``, run_pipeline's spans, ``serve.reply``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from deepreadmapper_tpu_torch.pipeline.search import (
     run_pipeline_paired,
     vectorizer_for_index,
 )
+from deepreadmapper_tpu_torch.utils import trace
 
 # request keys forwarded to run_pipeline verbatim (the JAX package's list)
 _REQ_KEYS = (
@@ -87,56 +93,84 @@ def serve(
     })
 
     served = 0
-    for line in in_stream:
-        line = line.strip()
-        if not line:
-            continue
-        try:
-            req = json.loads(line)
-        except json.JSONDecodeError as e:
-            reply({"ok": False, "error": f"bad request json: {e}"})
-            continue
-        tag = {"id": req["id"]} if "id" in req else {}
-        if req.get("cmd") == "quit":
-            reply({**tag, "ok": True, "quit": True})
+    for serial, line in enumerate(in_stream):
+        with trace.span("serve.request", request=str(serial)) as root:
+            with trace.span("serve.parse"):
+                req, resp = _parse(line)
+                if req is not None and "id" in req:
+                    root.request = str(req["id"])
+            if req is not None and resp is None:
+                # `res` stays referenced until the next request's replaces
+                # it: freeing a result's arrays at once lets the allocator
+                # return their pages, which the next request faults in again
+                resp, res = _map(req, index_prefix, ref_file, engine, config, vectorizer,
+                                 search_cfg, defaults, device)
+                served += 1 if resp["ok"] else 0
+            if resp is not None:
+                with trace.span("serve.reply"):
+                    reply(resp)
+        if resp is not None and resp.get("quit"):
             break
-        if "fastq" not in req:
-            reply({**tag, "ok": False, "error": "missing 'fastq'"})
-            continue
-        kwargs = {**defaults}
-        kwargs.update({k: req[k] for k in _REQ_KEYS if k in req})
-        stats = {} if req.get("search_stats") else None
-        try:
-            with contextlib.redirect_stdout(sys.stderr):
-                if "fastq2" in req:
-                    # every request key but use_dynamic, which
-                    # run_pipeline_paired has no parameter for
-                    pkw = {kk: vv for kk, vv in kwargs.items() if kk != "use_dynamic"}
-                    pkw.update({kk: req[kk] for kk in _PAIRED_KEYS if kk in req})
-                    res = run_pipeline_paired(
-                        index_prefix, req["fastq"], req["fastq2"], ref_file,
-                        vectorizer=vectorizer, search_cfg=search_cfg,
-                        preloaded=(engine, config), device=device, **pkw,
-                    )
-                else:
-                    res = run_pipeline(
-                        index_prefix, req["fastq"], ref_file,
-                        vectorizer=vectorizer, search_cfg=search_cfg,
-                        preloaded=(engine, config), search_stats=stats,
-                        device=device, **kwargs,
-                    )
-            served += 1
-            resp = {
-                **tag,
-                "ok": True,
-                "num_queries": res["num_queries"],
-                "t_embed": round(res["t_embed"], 3),
-                "t_search": round(res["t_search"], 3),
-                "t_post": round(res["t_post"], 3),
-            }
-            if stats:
-                resp["search_stats"] = stats
-            reply(resp)
-        except Exception as e:  # the daemon survives a bad request
-            reply({**tag, "ok": False, "error": f"{type(e).__name__}: {e}"})
     return served
+
+
+def _parse(line: str):
+    """(request, None) for a mapping request; (request or None, reply) for
+    a line answered at once (bad JSON, no fastq, quit); (None, None) for a
+    blank line."""
+    line = line.strip()
+    if not line:
+        return None, None
+    try:
+        req = json.loads(line)
+    except json.JSONDecodeError as e:
+        return None, {"ok": False, "error": f"bad request json: {e}"}
+    tag = {"id": req["id"]} if "id" in req else {}
+    if req.get("cmd") == "quit":
+        return req, {**tag, "ok": True, "quit": True}
+    if "fastq" not in req:
+        return req, {**tag, "ok": False, "error": "missing 'fastq'"}
+    return req, None
+
+
+def _map(req: dict, index_prefix, ref_file, engine, config, vectorizer, search_cfg,
+         defaults, device) -> tuple[dict, dict | None]:
+    """Map one request: (its reply, the pipeline's result); an error reply
+    and None when the pipeline raises (the daemon survives a bad
+    request)."""
+    tag = {"id": req["id"]} if "id" in req else {}
+    kwargs = {**defaults}
+    kwargs.update({k: req[k] for k in _REQ_KEYS if k in req})
+    stats = {} if req.get("search_stats") else None
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            if "fastq2" in req:
+                # every request key but use_dynamic, which
+                # run_pipeline_paired has no parameter for
+                pkw = {kk: vv for kk, vv in kwargs.items() if kk != "use_dynamic"}
+                pkw.update({kk: req[kk] for kk in _PAIRED_KEYS if kk in req})
+                res = run_pipeline_paired(
+                    index_prefix, req["fastq"], req["fastq2"], ref_file,
+                    vectorizer=vectorizer, search_cfg=search_cfg,
+                    preloaded=(engine, config), device=device, **pkw,
+                )
+            else:
+                res = run_pipeline(
+                    index_prefix, req["fastq"], ref_file,
+                    vectorizer=vectorizer, search_cfg=search_cfg,
+                    preloaded=(engine, config), search_stats=stats,
+                    device=device, **kwargs,
+                )
+    except Exception as e:  # the daemon survives a bad request
+        return {**tag, "ok": False, "error": f"{type(e).__name__}: {e}"}, None
+    resp = {
+        **tag,
+        "ok": True,
+        "num_queries": res["num_queries"],
+        "t_embed": round(res["t_embed"], 3),
+        "t_search": round(res["t_search"], 3),
+        "t_post": round(res["t_post"], 3),
+    }
+    if stats:
+        resp["search_stats"] = stats
+    return resp, res

@@ -222,8 +222,9 @@ def test_vectorizer_max_len_build_and_rerank_match_jax(data_dir, tmp_path):
 
 
 def test_profile_writes_a_trace(data_dir, tmp_path):
-    """pipeline --profile DIR on the CPU writes a Chrome trace of the embed
-    and the search (torch.profiler), and the outputs are unchanged."""
+    """pipeline --profile DIR on the CPU writes a Chrome trace of the whole
+    request (torch.profiler), the tracer's spans through the npy write
+    included, and the outputs are unchanged."""
     from deepreadmapper_tpu_torch import cli as tcli
 
     fna, fq = str(data_dir / "ecoli_150.fna"), str(data_dir / "test_data.fastq")
@@ -242,3 +243,5 @@ def test_profile_writes_a_trace(data_dir, tmp_path):
     trace = json.load(open(tmp_path / "trace" / files[0]))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)
+    assert {"pipeline.embed", "embed.encode", "pipeline.search", "search.scan",
+            "pipeline.post", "post.fasta", "post.sam", "write.npy"} <= names

@@ -5,6 +5,7 @@ scalar DP).  SW scores are integers, so every comparison is exact."""
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from deepreadmapper_tpu.io import fasta as fasta_io
 from deepreadmapper_tpu.io import fastq
@@ -15,6 +16,7 @@ from deepreadmapper_tpu.tokenizer import strings_to_bytes
 from deepreadmapper_tpu_torch import kernels
 from deepreadmapper_tpu_torch.ops import sw as tsw
 from deepreadmapper_tpu_torch.pipeline import postprocess as tpp
+from deepreadmapper_tpu_torch.utils import trace
 
 _INT32_MIN = np.iinfo(np.int32).min
 
@@ -393,11 +395,13 @@ def test_post_process_sw_matches_jax(data_dir, stride):
     jinv = js == _INT32_MIN
     assert jinv.any()
     order = np.argsort(jinv, axis=1, kind="stable")[:, :k]
-    timings = {}
-    ti, ts = tpp.post_process_sw(*args, k, kc, bound, query_chunk=16, device="cpu",
-                                 timings=timings)
+    # under a profiler the rerank records its fetch / score / sort spans
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ti, ts = tpp.post_process_sw(*args, k, kc, bound, query_chunk=16, device="cpu")
     assert ti.dtype == np.int64 and ts.dtype == np.int32
-    assert set(timings) == {"fetch", "sw", "sort"}
+    assert {s.name for s in trace.recorded()} == {"post.sw.fetch", "post.sw.score",
+                                                  "post.sw.sort"}
     np.testing.assert_array_equal(ti, np.take_along_axis(ji, order, axis=1))
     np.testing.assert_array_equal(ts, np.take_along_axis(js, order, axis=1))
     # where no slot is invalid, the two packages agree as they stand

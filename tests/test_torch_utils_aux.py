@@ -171,7 +171,12 @@ def test_id_map_size_error_matches_jax(tmp_path):
 
 
 def _fake_clock(monkeypatch, module):
-    """time.time -> 100.0, 100.25, 100.5, ... for the next calls."""
+    """The tracer's clock -> 100.0, 100.25, 100.5, ... s for the next calls:
+    time.time for the JAX package's, now_ns (in ns) for the port's."""
+    if hasattr(module, "now_ns"):
+        ticks_ns = iter(100_000_000_000 + 250_000_000 * i for i in range(1000))
+        monkeypatch.setattr(module, "now_ns", lambda: next(ticks_ns))
+        return
     ticks = iter(100.0 + 0.25 * i for i in range(1000))
     monkeypatch.setattr(module.time, "time", lambda: next(ticks))
 
@@ -191,7 +196,10 @@ def _traced(trace_mod, monkeypatch) -> tuple[str, str]:
     n = len(g.spans)
     with trace_mod.stage("write"):
         pass
-    assert len(g.spans) == n + 1 and g.spans[-1] == ("write", 0.25)
+    last = g.spans[-1]
+    if trace_mod is ttrace:  # the port keeps span records, the JAX package tuples
+        last = (last.name, last.seconds)
+    assert len(g.spans) == n + 1 and last == ("write", 0.25)
     return t.summary(), trace_mod.Tracer().summary()
 
 
