@@ -307,16 +307,17 @@ def sass_opcodes(so: str, fragment: str) -> dict:
 
 
 def strip_name(func: str) -> str:
-    """'S=5' for sw_score_kernel<5, SHARED>'s mangled name (and an older
-    checkout's sw_score_kernel<5>), 'S=40 global' / 'S=40 int32' for the
-    wider tiers' kernels, else the name."""
+    """'S=5' for sw_score_kernel<5, SHARED, false>'s mangled name (and an
+    older checkout's sw_score_kernel<5> or <5, SHARED>), 'S=40 global' /
+    'S=40 int32' for the wider tiers' kernels, ' by id' after either for the
+    by-id flavour's, else the name."""
     import re
 
-    m = re.search(r"sw_score_kernelILi(\d+)E(?:Li(\d)E)?", func)
+    m = re.search(r"sw_score_kernelILi(\d+)E(?:Li(\d)E)?(Lb1E)?", func)
     if not m:
         return func
     tier = ("", " global", " int32")[int(m.group(2) or 0)]
-    return f"S={m.group(1)}{tier}"
+    return f"S={m.group(1)}{tier}{' by id' if m.group(3) else ''}"
 
 
 def dpx_count(ops) -> int:
@@ -739,6 +740,38 @@ def _sw_wide_pairs(rng, p: int, lr: int, lc: int):
     return a, la, b, lb
 
 
+def _sw_by_id_request(rng):
+    """The SW rerank's launch on the card: a genome of 4 Mbp, N_READS
+    '<'-wrapped reads cut from windows on either strand (1% substitutions)
+    and 10 window ids a read: the read's own, random ones on both strands,
+    ids past the genome's end and -1 slots.  (genome, ids [N_READS, 10],
+    query rows [N_READS, READ_LEN + 2], lengths)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", np.uint8)
+    glen = 1 << 22
+    genome = acgt[rng.integers(0, 4, glen)]
+    ids = rng.integers(0, 2 * (glen - READ_LEN + 1), (N_READS, 10))
+    pos = ids[:, 0] >> 1
+    w = genome[pos[:, None] + np.arange(READ_LEN)]
+    rev = (ids[:, 0] & 1) == 1
+    w[rev] = comp[w[rev][:, ::-1]]
+    mask = rng.random(w.shape) < 0.01
+    w[mask] = acgt[rng.integers(0, 4, int(mask.sum()))]
+    q = np.full((N_READS, READ_LEN + 2), ord(">"), np.uint8)
+    q[:, 0], q[:, 1:-1] = ord("<"), w
+    past = rng.random((N_READS, 10)) < 0.01
+    past[:, 0] = False
+    ids[past] = 2 * rng.integers(glen - READ_LEN + 1, glen + 50, int(past.sum())) + 1
+    ids[rng.random((N_READS, 10)) < 0.01] = -1
+    return genome, ids, q, np.full(N_READS, READ_LEN + 2, np.int32)
+
+
+def sw_launches(launches: dict) -> int:
+    """#3's launches in a kernels.counts(): its matrix and by-id entries."""
+    return launches["sw_score"] + launches["sw_score_by_id"]
+
+
 def dpx_rate(s32: bool = False) -> float:
     """Lane instructions a second of sw_dpx_rate's loop of independent DPX
     add-max instructions (__viaddmax_s16x2_relu, or __viaddmax_s32_relu) on
@@ -817,6 +850,43 @@ def check_sw(results: dict):
             f" GCUPS) | plain {t_plain_a:.3f} / {t_plain_b:.3f} ms | bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {SW_OPS_PER_CELL} instructions a "
             f"cell at the measured DPX rate)")
+    # the main path's launch: one request's windows read by id from the genome
+    from deepreadmapper_tpu_torch.io.fasta import fetch_windows_by_id
+
+    host = _sw_by_id_request(np.random.default_rng(5))
+    genome, ids, q, ql = (torch.from_numpy(x).to(dev) for x in host)
+    p = ids.numel()
+    before = kernels.SW_SCORE_BY_ID.launches
+    got = sw.sw_scores_by_id(genome, ids, READ_LEN, q, ql)
+    torch.cuda.synchronize()
+    launched = kernels.SW_SCORE_BY_ID.launches - before
+    w_mat, w_lens = fetch_windows_by_id(host[0], host[1].ravel(), READ_LEN, max_len=READ_LEN)
+    a, la, b, lb = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+                    (w_mat, w_lens.astype(np.int32), np.repeat(host[2], 10, axis=0),
+                     np.repeat(host[3], 10)))
+    want = sw.sw_scores_reference(a, la, b, lb).view(got.shape)
+    torch.cuda.synchronize()
+    if launched != 1 or not torch.equal(got, want):
+        raise AssertionError(f"sw_score by id, {p} pairs: {int((got != want).sum())} scores "
+                             f"differ from the plain version ({launched} launches)")
+    top = int(got[:, 0].min())
+    del got, want
+    cells = float((la.double() * lb.double()).sum())
+    t_plain_a = cuda_time(lambda: sw.sw_scores_reference(a, la, b, lb), 1)
+    t_kernel = cuda_time(lambda: sw.sw_scores_by_id(genome, ids, READ_LEN, q, ql), 50)
+    t_plain_b = cuda_time(lambda: sw.sw_scores_reference(a, la, b, lb), 1)
+    bd = bound(float(la.sum() + ql.sum()) + 4.0 * 3 * p, SW_OPS_PER_CELL * cells, rate)
+    g = sw.sw_layout(p, READ_LEN, READ_LEN + 2)
+    by_id = {"ms": t_kernel, "plain_ms": (t_plain_a + t_plain_b) / 2, **bd, "pairs": p,
+             "layout": g}
+    log(f"[kernels] sw_score by id: {N_READS} reads x 10 windows of a {genome.numel()} bp "
+        f"genome ({p} pairs of {READ_LEN}x{READ_LEN + 2}; G, S, passes, tier {g}; both "
+        f"strands, ids past the end and -1): one launch, scores exactly equal to the plain "
+        f"version on the host-fetched windows (every read's own window scores >= {top}); "
+        f"kernel {t_kernel:.4f} ms ({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | plain "
+        f"{t_plain_a:.3f} / {t_plain_b:.3f} ms (the fetch not timed) | bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    del genome, ids, q, ql, a, la, b, lb
     wide = {}
     for lr, lc in SW_WIDE:
         p = SW_PAIRS[0]
@@ -884,7 +954,7 @@ def check_sw(results: dict):
             f"measured {'s32' if wide32 else 's16x2'} DPX rate)")
     funcs = sass_opcodes(kernels.SW_SCORE.build(), "sw_score_kernel")
     dpx = {strip_name(f): dpx_count(c) for f, c in funcs.items()}
-    main_s = f"S={sw.sw_layout(SW_PAIRS[0], READ_LEN, READ_LEN + 2)[1]}"
+    main_s = f"S={by_id['layout'][1]} by id"  # the main path's instantiation
     log(f"[kernels] sw_score SASS (sm_90a), DPX instructions by strip: {dpx}; the main "
         f"path's {main_s}: {dict(sum((c for f, c in funcs.items() if strip_name(f) == main_s), Counter()).most_common(12))}")
     if not dpx.get(main_s):
@@ -899,11 +969,11 @@ def check_sw(results: dict):
     rates = {strip_name(f): dict(c.most_common(6))
              for f, c in sass_opcodes(kernels.SW_SCORE.build(), "dpx_rate_kernel").items()}
     log(f"[kernels] sw_dpx_rate SASS: {rates}")
-    main = shapes[SW_PAIRS[0]]
-    results["sw_score"] = {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
-                           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+    results["sw_score"] = {"max_abs_err": 0.0, "ms": by_id["ms"], "plain_ms": by_id["plain_ms"],
+                           "bound_ms": by_id["bound_ms"], "bound_by": by_id["bound_by"],
                            "library_ms": None,
-                           "extra": {"pairs": {str(p): v for p, v in shapes.items()},
+                           "extra": {"by_id": by_id,
+                                     "pairs": {str(p): v for p, v in shapes.items()},
                                      "wide": wide, "tiers": tiers,
                                      "dpx_instructions": dpx[main_s],
                                      "dpx_rate_measured": rate,
@@ -1267,17 +1337,6 @@ def simulate(work: str, genome_bp: int = GENOME_BP, n_reads: int = N_READS):
     return ref, fq, starts, strands, wrapped, body
 
 
-def fetch_windows(genome: np.ndarray, ids: np.ndarray):
-    """(bytes [M, READ_LEN], lengths) of the windows 2*pos | strand of one
-    ACGT genome: odd ids are the reverse complement."""
-    comp = np.zeros(256, np.uint8)
-    comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
-    w = genome[(ids >> 1)[:, None] + np.arange(READ_LEN)]
-    rev = (ids & 1) == 1
-    w[rev] = comp[w[rev][:, ::-1]]
-    return w, np.full(ids.size, READ_LEN)
-
-
 def sam_primaries(sam: str) -> tuple[np.ndarray, np.ndarray]:
     """(0-based position, strand) of each read's first SAM record, in read
     order; -1 position for an unmapped primary."""
@@ -1425,7 +1484,7 @@ def phase_genome_pq(results: dict):
 
     work = os.path.join(WORK, "genome_pq")
     os.makedirs(work, exist_ok=True)
-    ref, fq, starts, strands, mat, _ = simulate(work, PQ_GENOME_BP, N_READS)
+    ref, fq, starts, strands, mat, body = simulate(work, PQ_GENOME_BP, N_READS)
     idx, out = os.path.join(work, "idx"), os.path.join(work, "out")
     torch.cuda.reset_peak_memory_stats()
 
@@ -1455,10 +1514,10 @@ def phase_genome_pq(results: dict):
     log(f"[genome_pq] launches in build-index + pipeline: {launches}")
     log(f"[genome_pq] max_memory_allocated in build-index + pipeline: "
         f"{peak / 2**30:.2f} GiB")
-    if min(launches["gru_fwd"], launches["pq_winmin"], launches["sw_score"]) <= 0:
+    if min(launches["gru_fwd"], launches["pq_winmin"], sw_launches(launches)) <= 0:
         raise AssertionError(f"main path missed a kernel: {launches}")
-    for name in ("pq_winmin", "sw_score"):
-        results[name]["launches"] = launches[name]
+    results["pq_winmin"]["launches"] = launches["pq_winmin"]
+    results["sw_score"]["launches"] = sw_launches(launches)
 
     # SW reranks the search's own candidates (indices.npy, k=10 at stride
     # 1): it must find the true window whenever the search delivered it
@@ -1474,13 +1533,14 @@ def phase_genome_pq(results: dict):
                              f"recall@10 {recall})")
     pqflat = {"sim": (ref, fq, starts, strands, mat), "idx": idx, "top1": pq_top1}
 
-    # the SW kernel alone by CUDA events on as many pairs of the same
-    # widths (the rerank's host split: the post.sw.* spans of a traced run)
-    p = N_READS * 10
-    a, la, b, lb = (torch.from_numpy(x).cuda()
-                    for x in _sw_pairs(np.random.default_rng(4), p))
-    t_sw = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 3)
-    log(f"[genome_pq] the SW kernel alone on {p} pairs: {t_sw:.2f} ms (CUDA events)")
+    # the SW kernel alone by CUDA events on the request's pairs, by id (the
+    # rerank's host split: the post.sw.* spans of a traced run)
+    g, c, m, ml = (torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in
+                   (body, cand, mat, np.full(N_READS, READ_LEN + 2, np.int32)))
+    t_sw = cuda_time(lambda: sw.sw_scores_by_id(g, c, READ_LEN, m, ml), 3)
+    log(f"[genome_pq] the SW kernel alone on the request's {c.numel()} pairs by id: "
+        f"{t_sw:.2f} ms (CUDA events)")
+    del g, c, m, ml
 
     # steady state: the same embed + search again, index already resident
     engine, _ = load_index(idx)
@@ -1633,8 +1693,9 @@ def check_cpu_size_sw():
     lengths = np.full(CPU_SIZE_READS, READ_LEN + 2)
     cand, _ = engine.search(Vectorizer().vectorize_wrapped_bytes(mat, lengths), 10,
                             exact=True)
-    ids, _ = pp.post_process_sw(cand, mat, lengths, lambda x: fetch_windows(genome, x),
-                                1, 10, 10, 2 * (CPU_SIZE_BP - READ_LEN + 1))
+    ids, _ = pp.post_process_sw(cand, mat, lengths, None, 1, 10, 10,
+                                2 * (CPU_SIZE_BP - READ_LEN + 1), genome=genome,
+                                ref_len=READ_LEN)
     top = ids[:, 0]
     hits = int(np.sum((np.abs((top >> 1) - starts) <= 5) & ((top & 1) == strands)))
     log(f"[cpu_size] {CPU_SIZE_BP} bp, {CPU_SIZE_READS} reads: SW top-1 over the exact "
@@ -1663,7 +1724,7 @@ def check_cpu_size_sw():
     log(f"[cpu_size] pipeline --rerank sw at ref_len {SW_WIDE_REF_LEN}: {t_pipe:.2f} s, "
         f"launches {launches}; top-1 window holds the read for {inside:.4f} of reads "
         "(need >= 0.95)")
-    if rc != 0 or launches["sw_score"] < 1:
+    if rc != 0 or sw_launches(launches) < 1:
         raise AssertionError(f"--rerank sw at ref_len {SW_WIDE_REF_LEN}: rc {rc}, {launches}")
     if inside < 0.95:
         raise AssertionError(f"ref_len {SW_WIDE_REF_LEN} SW top-1 holds the read for {inside}")
@@ -1712,27 +1773,32 @@ def check_wide_sw_cli():
     if cli.main(["build-index", ref, idx, str(L)]) != 0:
         raise AssertionError(f"build-index at ref_len {L} failed")
     t_build = time.perf_counter() - t0
-    tiers, launch = [], kernels.SW_SCORE.launch
+    tiers = []
 
-    def recording(*args):  # the tier argument of each sw_score launch
-        tiers.append(sw._TIERS[args[12]])
-        return launch(*args)
+    def recording(kernel, tier_arg):  # the tier argument of each launch of #3
+        launch = kernel.launch
+
+        def wrapped(*args):
+            tiers.append(sw._TIERS[args[tier_arg]])
+            return launch(*args)
+        return wrapped
 
     kernels.reset_counts()
-    kernels.SW_SCORE.launch = recording
+    kernels.SW_SCORE.launch = recording(kernels.SW_SCORE, 12)
+    kernels.SW_SCORE_BY_ID.launch = recording(kernels.SW_SCORE_BY_ID, 16)
     t0 = time.perf_counter()
     try:
         rc = cli.main(["pipeline", idx, fq, ref, "128", "10", "128", out, "--rerank", "sw"])
         torch.cuda.synchronize()
     finally:
-        del kernels.SW_SCORE.launch
+        del kernels.SW_SCORE.launch, kernels.SW_SCORE_BY_ID.launch
     t_pipe = time.perf_counter() - t0
     launches = kernels.counts()
     log(f"[wide_sw] build-index {WIDE_SW_GENOME_BP} bp at ref_len {L} "
         f"({2 * (WIDE_SW_GENOME_BP - L + 1)} windows) {t_build:.2f} s; pipeline --rerank sw on "
         f"{n} reads of {L} bp: rc {rc}, {t_pipe:.2f} s, launches {launches}, sw_score tiers "
         f"{tiers}")
-    if rc != 0 or launches["sw_score"] < 1 or set(tiers) != {"global"}:
+    if rc != 0 or sw_launches(launches) < 1 or set(tiers) != {"global"}:
         raise AssertionError(f"--rerank sw at ref_len {L}: rc {rc}, {launches}, {tiers}")
     # indices.npy holds the search's candidates (the SAM the SW-ranked ids):
     # the rerank again on them, on the card and on the CPU
@@ -1745,24 +1811,23 @@ def check_wide_sw_cli():
         return fasta_io.fetch_windows_by_id(genome, w, L, max_len=L)
 
     t0 = time.perf_counter()
-    gi, gs = pp.post_process_sw(cand, q_mat, q_lens, fetch, 1, 10, 10, bound_ids)
+    gi, gs = pp.post_process_sw(cand, q_mat, q_lens, None, 1, 10, 10, bound_ids,
+                                genome=genome, ref_len=L)
     t_card = time.perf_counter() - t0
-    # the kernel alone on the rerank's pairs (one launch of n x 10), by CUDA events
-    w_mat, w_lens = fetch(cand.ravel())
-    a, la, b, lb = (torch.from_numpy(np.ascontiguousarray(x)).cuda().contiguous() for x in
-                    (w_mat, w_lens.astype(np.int32), np.repeat(q_mat, 10, axis=0),
-                     np.repeat(q_lens, 10).astype(np.int32)))
-    layout = sw.sw_layout(a.shape[0], a.shape[1], b.shape[1])
-    t_kernel = cuda_time(lambda: sw.sw_scores(a, la, b, lb), 3)
-    cells = float((la.double() * lb.double()).sum())
-    bd = bound(float(la.sum() + lb.sum()) + 4.0 * 3 * a.shape[0], SW_OPS_PER_CELL * cells,
+    # the kernel alone on the rerank's pairs (one launch of n x 10 by id), by CUDA events
+    g, c, q, ql = (torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in
+                   (genome, cand, q_mat, q_lens.astype(np.int32)))
+    p, w = c.numel(), q.shape[1]
+    layout = sw.sw_layout(p, L, w)
+    t_kernel = cuda_time(lambda: sw.sw_scores_by_id(g, c, L, q, ql), 3)
+    cells = float(ql.double().sum()) * 10 * L
+    bd = bound(10.0 * float(ql.sum()) + p * L + 4.0 * 3 * p, SW_OPS_PER_CELL * cells,
                dpx_rate())
-    log(f"[wide_sw] sw_score alone on the rerank's {a.shape[0]} pairs of {a.shape[1]}x"
-        f"{b.shape[1]} (G, S, passes, tier {layout}; scratch "
-        f"{sw.sw_scratch_bytes(a.shape[0], a.shape[1], b.shape[1])} bytes): {t_kernel:.3f} ms "
-        f"({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']})")
-    del a, b
+    log(f"[wide_sw] sw_score alone on the rerank's {p} pairs of {L}x{w}, by id (G, S, "
+        f"passes, tier {layout}; scratch {sw.sw_scratch_bytes(p, L, w)} bytes): "
+        f"{t_kernel:.3f} ms ({cells / (t_kernel * 1e-3) / 1e9:.1f} GCUPS) | bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    del g, c, q, ql
     m = WIDE_SW_CPU_READS
     t0 = time.perf_counter()
     ci, cs = pp.post_process_sw(cand[:m], q_mat[:m], q_lens[:m], fetch, 1, 10, 10,
@@ -2486,7 +2551,7 @@ def phase_genome_sam(genome: dict):
         raise AssertionError("genome_sam --rerank sw --mapq failed")
     launches = kernels.counts()
     sw_q = [int(_primary(v)[4]) for v in _sam_reads(os.path.join(o, "results.sam"))[1].values()]
-    if launches["sw_score"] <= 0 or min(sw_q) < 0 or max(sw_q) > 60:
+    if sw_launches(launches) <= 0 or min(sw_q) < 0 or max(sw_q) > 60:
         raise AssertionError(f"SW MAPQ path: launches {launches}, MAPQ {min(sw_q)}..{max(sw_q)}")
     log(f"[genome_sam] --mapq-calibrated == calibrate_mapq(raw) on {len(names)} reads; "
         f"--rerank sw --mapq in {time.perf_counter() - t0:.2f} s, launches {launches}, "
@@ -2813,7 +2878,7 @@ def phase_genome_pe():
     sw = (_end_top1(ids[:PE_PAIRS], t1, 0), _end_top1(ids[PE_PAIRS:], t2, 1))
     log(f"[genome_pe] --rerank sw: {t_sw:.2f} s, top-1 {sw[0]:.4f} / {sw[1]:.4f}, launches "
         f"{launches}")
-    if launches["sw_score"] <= 0:
+    if sw_launches(launches) <= 0:
         raise AssertionError(f"the paired SW run launched no sw_score: {launches}")
 
     # serve: a fastq2 request equals the one-shot paired run
@@ -3360,14 +3425,14 @@ def phase_genome_shard(genome: dict, hnsw: dict):
                        "--shards", str(SHARD_N_OTHER)])
     pipe = ["128", "10", "128"]
     pipeline("a PQFLAT", [pq, fq, ref, *pipe, os.path.join(work, "pq_out"), "--rerank", "sw"],
-             ("gru_fwd", "pq_winmin", "sw_score"))
+             ("gru_fwd", "pq_winmin", "sw_score_by_id"))
     shpq, cfg = load_index(pq)
     s0 = shpq.subs[0]
     codes = np.concatenate([s.codes for s in shpq.subs])[: shpq.ntotal]
     PQFlatIndex(codes, s0.codebook, shpq.ntotal, s0.rot, dev).save(pq1)
     save_config(cfg, pq1)
     pipeline("a PQFLAT unsharded", [pq1, fq, ref, *pipe, os.path.join(work, "pq1_out"),
-                                    "--rerank", "sw"], ("pq_winmin", "sw_score"))
+                                    "--rerank", "sw"], ("pq_winmin", "sw_score_by_id"))
     sw_sh = sw_top1(os.path.join(work, "pq_out", "results.sam"), starts, strands)
     sw_one = sw_top1(os.path.join(work, "pq1_out", "results.sam"), starts, strands)
     log(f"[genome_shard a] PQFLAT {SHARD_N_OTHER} shards -> --rerank sw: SW top-1 {sw_sh:.4f} "
@@ -3703,7 +3768,7 @@ def phase_finetune_dp(results: dict, genome: dict, smi: str):
     trace = json.load(open(tpath))
     kern = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
     found = {k: sum(k in name for name in kern) for k in ("gru_fwd", "gru_bwd")}
-    log(f"[finetune_dp c] stage + device_trace: {tracer.spans[-1][0]!r} {tracer.spans[-1][1]:.2f} "
+    log(f"[finetune_dp c] stage + device_trace: {tracer.spans[-1].name!r} {tracer.spans[-1].seconds:.2f} "
         f"s (profiler on; {smi}), {len(kern)} kernel events in "
         f"{os.path.getsize(tpath) / 1e6:.1f} MB, by name {found}")
     if not all(found.values()):
@@ -3876,12 +3941,13 @@ def main() -> int:
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_finetune_dp")
+    source = {k.name: k.source for k in kernels.ALL}  # sw_score_by_id: #3's row
     rows = [
-        {"name": k.name, "route": "cuda",
-         "source": os.path.relpath(k.source, ROOT),
-         "replaces": replaces[k.name], **{key: results[k.name][key] for key in keys},
-         **results[k.name].get("extra", {})}
-        for k in kernels.ALL
+        {"name": name, "route": "cuda",
+         "source": os.path.relpath(source[name], ROOT),
+         "replaces": tpu, **{key: results[name][key] for key in keys},
+         **results[name].get("extra", {})}
+        for name, tpu in replaces.items()
     ]
     print(json.dumps({"kernels": rows}))
     print(smi)

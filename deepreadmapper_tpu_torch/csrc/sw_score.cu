@@ -60,6 +60,16 @@
 // ops/sw.py): they never match, so cells there only decay and the best
 // stays the true-length DP's.  Each group runs to the longer of its la; a
 // missing second pair (odd P, and the INT32 tier's) has length 0.
+// Two sources of the pairs' bytes (the template's BYID), in every tier:
+// - byte matrices a [P, lr] and b [P, lc] with their lengths (sw_score);
+// - windows by id (sw_score_by_id, the SW rerank's): pair p is the window
+//   ids[p] of a device copy of the genome against the query row p / C.  A
+//   window is read where it is scored: id >> 1 is its position, and an odd
+//   id reads genome[pos + ref_len - 1 - i] through the complement table,
+//   io/fasta.py's COMP; a window that does not lie inside the genome is
+//   ref_len zero bytes, as io/fasta.py::fetch_windows_by_id returns it.
+//   The windows are the rows when ref_len is at most the query rows' width,
+//   else the columns, as ops/sw.py::sw_scores would lay them out.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,6 +87,63 @@ enum Tier : int { SHARED = 0, GLOBAL = 1, INT32 = 2 };
 
 __device__ __forceinline__ int clamp_len(int n, int width) {
   return min(max(n, 0), width);
+}
+
+// io/fasta.py's COMP: A<->T, C<->G, N->N, every other byte 0
+struct CompTable { uint8_t v[256]; };
+constexpr CompTable make_comp() {
+  CompTable t{};
+  t.v['A'] = 'T'; t.v['T'] = 'A'; t.v['C'] = 'G'; t.v['G'] = 'C'; t.v['N'] = 'N';
+  return t;
+}
+__constant__ CompTable kComp = make_comp();
+
+// The by-id source: pair p of a launch is the window ids[p] of the genome
+// against query row (first + p) / C, ids 2 pos | strand
+struct ById {
+  const uint8_t* genome;
+  const long long* ids;
+  long long glen;
+  const uint8_t* q;    // query rows, as wide as the side they are on
+  const int* qlen;
+  int C;               // pairs a query
+  int first;           // the launch's first pair in its call
+  int windows_rows;    // 1: the windows are the rows (a), 0: the columns (b)
+};
+
+// One pair's bytes on one side: base[i] below len, or (rev) the complement
+// of base[-i]; no base: len zero bytes
+struct Row {
+  const uint8_t* base;
+  int len;
+  bool rev;
+};
+
+__device__ __forceinline__ unsigned row_byte(const Row& r, int i) {
+  if (r.base == nullptr) return 0u;
+  return r.rev ? (unsigned)kComp.v[r.base[-i]] : (unsigned)r.base[i];
+}
+
+__device__ __forceinline__ Row window_row(const ById& s, int p, int width) {
+  const long long id = s.ids[p];
+  const long long pos = id >> 1;
+  if (pos < 0 || pos + width > s.glen) return {nullptr, width, false};
+  return (id & 1) ? Row{s.genome + pos + width - 1, width, true}
+                  : Row{s.genome + pos, width, false};
+}
+
+__device__ __forceinline__ Row query_row(const ById& s, int p, int width) {
+  const int r = (s.first + p) / s.C;
+  return {s.q + (size_t)r * width, clamp_len(s.qlen[r], width), false};
+}
+
+// pair p's row (a, lr wide) and column (b, lc wide) sides, by id
+__device__ __forceinline__ Row a_row(const ById& s, int p, int lr) {
+  return s.windows_rows ? window_row(s, p, lr) : query_row(s, p, lr);
+}
+
+__device__ __forceinline__ Row b_row(const ById& s, int p, int lc) {
+  return s.windows_rows ? query_row(s, p, lc) : window_row(s, p, lc);
 }
 
 // The DPX steps on two 16-bit halves, or (W32) on one 32-bit value
@@ -104,12 +171,12 @@ __device__ __forceinline__ unsigned max_relu(unsigned a, unsigned b) {
   else return __vimax_s16x2_relu(a, b);
 }
 
-template <int S, int TIER>
+template <int S, int TIER, bool BYID>
 __global__ void __launch_bounds__(THREADS)
 sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
                 const uint8_t* __restrict__ b, const int* __restrict__ blen,
-                int* __restrict__ out, unsigned* scratch, int np, int lr, int lc,
-                int G, int passes) {
+                const ById byid, int* __restrict__ out, unsigned* scratch, int np,
+                int lr, int lc, int G, int passes) {
   constexpr bool W32 = TIER == INT32;
   constexpr int PG = W32 ? 1 : 2;      // pairs a group
   constexpr unsigned THREE = W32 ? 3u : 0x00030003u;
@@ -132,7 +199,14 @@ sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
   for (int idx = tid; idx < PG * ng * lr; idx += THREADS) {
     const int t = idx / lr, i = idx - t * lr;
     unsigned byte = PAD_A;
-    if (t < rows_here && i < clamp_len(alen[p0 + t], lr)) byte = ablk[idx];
+    if constexpr (BYID) {
+      if (t < rows_here) {
+        const Row r = a_row(byid, p0 + t, lr);
+        if (i < r.len) byte = row_byte(r, i);
+      }
+    } else if (t < rows_here && i < clamp_len(alen[p0 + t], lr)) {
+      byte = ablk[idx];
+    }
     if constexpr (W32)
       a_sh[t * pitch + i] = ~(byte << 1);
     else
@@ -142,12 +216,22 @@ sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
   __syncthreads();
 
   const int plo = p0 + PG * grp, phi = W32 ? np : plo + 1;  // no second pair in 32-bit lanes
-  const int la = max(plo < np ? clamp_len(alen[plo], lr) : 0,
-                     phi < np ? clamp_len(alen[phi], lr) : 0);
-  const int lb_lo = plo < np ? clamp_len(blen[plo], lc) : 0;
-  const int lb_hi = phi < np ? clamp_len(blen[phi], lc) : 0;
-  const uint8_t* b_lo = b + (size_t)min(plo, np - 1) * lc;
-  const uint8_t* b_hi = b + (size_t)min(phi, np - 1) * lc;
+  int la, lb_lo, lb_hi;
+  const uint8_t *b_lo = nullptr, *b_hi = nullptr;
+  Row rb_lo{nullptr, 0, false}, rb_hi{nullptr, 0, false};
+  if constexpr (BYID) {
+    la = max(plo < np ? a_row(byid, plo, lr).len : 0, phi < np ? a_row(byid, phi, lr).len : 0);
+    if (plo < np) rb_lo = b_row(byid, plo, lc);
+    if (phi < np) rb_hi = b_row(byid, phi, lc);
+    lb_lo = rb_lo.len;
+    lb_hi = rb_hi.len;
+  } else {
+    la = max(plo < np ? clamp_len(alen[plo], lr) : 0, phi < np ? clamp_len(alen[phi], lr) : 0);
+    lb_lo = plo < np ? clamp_len(blen[plo], lc) : 0;
+    lb_hi = phi < np ? clamp_len(blen[phi], lc) : 0;
+    b_lo = b + (size_t)min(plo, np - 1) * lc;
+    b_hi = b + (size_t)min(phi, np - 1) * lc;
+  }
   const int steps = (int)__reduce_max_sync(FULL, (unsigned)la) + G - 1;
   const unsigned* arow = a_sh + grp * pitch - g;  // arow[t]: the row lane g takes at step t
 
@@ -158,13 +242,15 @@ sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
 #pragma unroll
     for (int k = 0; k < S; ++k) {
       const int c = c0 + k;
-      const unsigned lo = c < lb_lo ? b_lo[c] : PAD_B;
-      if constexpr (W32) {
-        bw[k] = lo << 1;
+      unsigned lo = PAD_B, hi = PAD_B;
+      if constexpr (BYID) {
+        if (c < lb_lo) lo = row_byte(rb_lo, c);
+        if (!W32 && c < lb_hi) hi = row_byte(rb_hi, c);
       } else {
-        const unsigned hi = c < lb_hi ? b_hi[c] : PAD_B;
-        bw[k] = (lo << 1) | (hi << 17);
+        if (c < lb_lo) lo = b_lo[c];
+        if (!W32 && c < lb_hi) hi = b_hi[c];
       }
+      bw[k] = W32 ? lo << 1 : (lo << 1) | (hi << 17);
       up[k] = M1;  // the row above row 0: H = 0
     }
     // pass q - 1's edges, and this pass's: one buffer outside shared memory
@@ -212,10 +298,10 @@ sw_score_kernel(const uint8_t* __restrict__ a, const int* __restrict__ alen,
   }
 }
 
-template <int S, int TIER>
+template <int S, int TIER, bool BYID>
 int launch(const void* a, const void* alen, const void* b, const void* blen,
-           void* out, void* scratch, int np, int lr, int lc, int G, int passes,
-           cudaStream_t stream) {
+           const ById& byid, void* out, void* scratch, int np, int lr, int lc, int G,
+           int passes, cudaStream_t stream) {
   const int ng = THREADS / G;
   size_t smem = 0;
   if constexpr (TIER == SHARED) {
@@ -223,7 +309,8 @@ int launch(const void* a, const void* alen, const void* b, const void* blen,
            sizeof(unsigned);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          sw_score_kernel<S, TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          sw_score_kernel<S, TIER, BYID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   } else if (scratch == nullptr) {
@@ -231,11 +318,44 @@ int launch(const void* a, const void* alen, const void* b, const void* blen,
   }
   const int pg = TIER == INT32 ? 1 : 2;
   const int blocks = ((np + pg - 1) / pg + ng - 1) / ng;
-  sw_score_kernel<S, TIER><<<blocks, THREADS, smem, stream>>>(
+  sw_score_kernel<S, TIER, BYID><<<blocks, THREADS, smem, stream>>>(
       static_cast<const uint8_t*>(a), static_cast<const int*>(alen),
-      static_cast<const uint8_t*>(b), static_cast<const int*>(blen),
+      static_cast<const uint8_t*>(b), static_cast<const int*>(blen), byid,
       static_cast<int*>(out), static_cast<unsigned*>(scratch), np, lr, lc, G, passes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of the layout ops/sw.py::sw_layout chose
+template <bool BYID>
+int dispatch(const void* a, const void* alen, const void* b, const void* blen,
+             const ById& byid, void* out, void* scratch, int np, int lr, int lc,
+             int groups, int strip, int passes, int tier, void* stream) {
+  if (groups < 1 || groups > 32 || (groups & (groups - 1)) || passes < 1 ||
+      (long long)groups * strip * passes < lc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SW_CASE(S, T)                                                          \
+  case S:                                                                      \
+    return launch<S, T, BYID>(a, alen, b, blen, byid, out, scratch, np, lr, lc, \
+                              groups, passes, st);
+  switch (tier) {
+    case SHARED:
+      switch (strip) {
+        SW_CASE(1, SHARED) SW_CASE(2, SHARED) SW_CASE(3, SHARED) SW_CASE(4, SHARED)
+        SW_CASE(5, SHARED) SW_CASE(6, SHARED) SW_CASE(8, SHARED) SW_CASE(10, SHARED)
+        SW_CASE(12, SHARED) SW_CASE(16, SHARED) SW_CASE(20, SHARED)
+        SW_CASE(24, SHARED) SW_CASE(32, SHARED) SW_CASE(40, SHARED)
+      }
+      break;
+    case GLOBAL:
+      switch (strip) { SW_CASE(32, GLOBAL) SW_CASE(40, GLOBAL) }
+      break;
+    case INT32:
+      switch (strip) { SW_CASE(32, INT32) SW_CASE(40, INT32) }
+      break;
+  }
+#undef SW_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // A loop of independent DPX add-max instructions on every scheduler, on
@@ -264,7 +384,7 @@ __global__ void __launch_bounds__(256) dpx_rate_kernel(unsigned* out, int iters)
 
 // a [np, lr] uint8, alen [np] int32, b [np, lc] uint8, blen [np] int32 ->
 // out [np] int32.  groups G (a power of two <= 32), strip S (columns a lane
-// holds, one of the instantiations below), passes and tier (0 SHARED, 1
+// holds, one of dispatch's instantiations), passes and tier (0 SHARED, 1
 // GLOBAL, 2 INT32) come from ops/sw.py::sw_layout; G x S x passes >= lc.
 // The GLOBAL and INT32 tiers take G = 32 and S 32 or 40 (their lc is past
 // 32 x 40 columns), and scratch: ceil(ceil(np / pairs a group) / (128 / G))
@@ -273,32 +393,33 @@ extern "C" int sw_score(const void* a, const void* alen, const void* b,
                         const void* blen, void* out, void* scratch, int np, int lr,
                         int lc, int groups, int strip, int passes, int tier,
                         void* stream) {
-  if (groups < 1 || groups > 32 || (groups & (groups - 1)) || passes < 1 ||
-      (long long)groups * strip * passes < lc)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SW_CASE(S, T)                                                          \
-  case S:                                                                      \
-    return launch<S, T>(a, alen, b, blen, out, scratch, np, lr, lc, groups,     \
-                        passes, st);
-  switch (tier) {
-    case SHARED:
-      switch (strip) {
-        SW_CASE(1, SHARED) SW_CASE(2, SHARED) SW_CASE(3, SHARED) SW_CASE(4, SHARED)
-        SW_CASE(5, SHARED) SW_CASE(6, SHARED) SW_CASE(8, SHARED) SW_CASE(10, SHARED)
-        SW_CASE(12, SHARED) SW_CASE(16, SHARED) SW_CASE(20, SHARED)
-        SW_CASE(24, SHARED) SW_CASE(32, SHARED) SW_CASE(40, SHARED)
-      }
-      break;
-    case GLOBAL:
-      switch (strip) { SW_CASE(32, GLOBAL) SW_CASE(40, GLOBAL) }
-      break;
-    case INT32:
-      switch (strip) { SW_CASE(32, INT32) SW_CASE(40, INT32) }
-      break;
-  }
-#undef SW_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(a, alen, b, blen, ById{}, out, scratch, np, lr, lc, groups,
+                         strip, passes, tier, stream);
+}
+
+// The same scores with the pairs' bytes read by id: genome [glen] uint8,
+// ids [np] int64 (the launch's pairs first .. first + np - 1 of its call),
+// q [np / C rows of the call, width] uint8 with qlen int32 -> out [np].
+// windows_rows 1: the windows (ref_len) are the rows, lr = ref_len and the
+// query rows lc wide; 0: the windows are the columns, lc = ref_len and the
+// query rows lr wide.  The layout as for sw_score.
+extern "C" int sw_score_by_id(const void* genome, long long glen, const void* ids,
+                              const void* q, const void* qlen, int pairs_a_query,
+                              int first, int windows_rows, void* out, void* scratch,
+                              int np, int lr, int lc, int groups, int strip, int passes,
+                              int tier, void* stream) {
+  if (pairs_a_query < 1 || first < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ById byid{static_cast<const uint8_t*>(genome), static_cast<const long long*>(ids),
+                  glen, static_cast<const uint8_t*>(q), static_cast<const int*>(qlen),
+                  pairs_a_query, first, windows_rows};
+  return dispatch<true>(nullptr, nullptr, nullptr, nullptr, byid, out, scratch, np, lr,
+                        lc, groups, strip, passes, tier, stream);
+}
+
+// The complement table the by-id source reads, 256 bytes into out (host
+// memory): the tests hold it to io/fasta.py's COMP.
+extern "C" int sw_comp_table(void* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, kComp, sizeof(kComp)));
 }
 
 // out [blocks x 256] uint32; each thread runs iters x 32 DPX add-max

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def nvcc_path() -> str:
@@ -136,6 +137,10 @@ INT8_WINMIN = CudaKernel("int8_winmin", [_P] * 4 + [_I] * 4 + [_F, _P])
 # sw_score(a, alen, b, blen, out, scratch, np, lr, lc, groups, strip, passes,
 #          tier, stream)
 SW_SCORE = CudaKernel("sw_score", [_P] * 6 + [_I] * 7 + [_P])
+# sw_score_by_id(genome, glen, ids, q, qlen, pairs_a_query, first, windows_rows,
+#                out, scratch, np, lr, lc, groups, strip, passes, tier, stream)
+SW_SCORE_BY_ID = CudaKernel("sw_score_by_id", [_P, _L] + [_P] * 3 + [_I] * 3 + [_P] * 2
+                            + [_I] * 7 + [_P], "sw_score")
 # pq_winmin(q8, codes, cent8, vals, args, qp, np, w, ntotal, ratio2, m, ksub, stream)
 PQ_WINMIN = CudaKernel("pq_winmin", [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P])
 
@@ -167,7 +172,11 @@ IVF_FOLD = CudaKernel("ivf_fold", [_P] * 5 + [_I] * 2 + [_P], "ivf_chunk")
 # sw_score's bounds divide by; not a kernel of the main path, so not in ALL
 SW_DPX_RATE = CudaKernel("sw_dpx_rate", [_P] + [_I] * 3 + [_P], "sw_score")
 
-ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, PQ_WINMIN, IVF_CHUNK_INT8,
+# sw_comp_table(out): the complement table the by-id flavour reads, copied
+# to host memory for the tests; not a kernel, so not in ALL
+SW_COMP_TABLE = CudaKernel("sw_comp_table", [_P], "sw_score")
+
+ALL = (GRU_FWD, INT8_WINMIN, SW_SCORE, SW_SCORE_BY_ID, PQ_WINMIN, IVF_CHUNK_INT8,
        IVF_CHUNK_INT8_FOLD, IVF_CHUNK_PQ, IVF_CHUNK_PQ_FOLD, GRU_BWD)
 
 

@@ -22,13 +22,19 @@ short reads against windows of any length), "global" (rows and pass edges
 in a global scratch: up to 32,767 bytes, e.g. 6 kb reads against ref_len
 6,000 windows) and "int32" (one pair a group in 32-bit lanes past 32,767,
 where the 16-bit halves would wrap).
+
+:func:`sw_scores_by_id` scores the SW rerank's pairs without laying them
+out: each window is read by its id from a copy of the genome where it is
+scored, each query by its row, in the same kernel and tiers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deepreadmapper_tpu_torch import kernels
+from deepreadmapper_tpu_torch.io.fasta import fetch_windows_by_id
 
 _PAD_A = 254
 _PAD_B = 255
@@ -216,19 +222,90 @@ def sw_scores(a_mat: torch.Tensor, a_lens: torch.Tensor, b_mat: torch.Tensor,
     b_mat = b_mat.contiguous()
     la = a_lens.to(device=dev, dtype=torch.int32).contiguous()
     lb = b_lens.to(device=dev, dtype=torch.int32).contiguous()
-    if tier == "shared":
-        step, scratch = p, None
-    else:
-        step, nbytes = _launch_split(p, lr, g, tier)
-        scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for s in range(0, p, step):
-            n = min(step, p - s)
+        for s, n, scratch in _launches(p, lr, g, tier, dev):
             kernels.SW_SCORE.launch(
                 a_mat.data_ptr() + s * lr, la.data_ptr() + 4 * s,
                 b_mat.data_ptr() + s * lc, lb.data_ptr() + 4 * s,
-                out.data_ptr() + 4 * s, None if scratch is None else scratch.data_ptr(),
+                out.data_ptr() + 4 * s, scratch,
                 n, lr, lc, g, strip, passes, _TIERS.index(tier), stream,
             )
     return out
+
+
+def _launches(p: int, lr: int, g: int, tier: str, dev: torch.device):
+    """(first pair, pairs, scratch pointer or None) of each launch of a call
+    of p > 0 pairs: one launch in the "shared" tier; in the wider tiers as
+    many pairs a launch as :func:`_launch_split` allows, one scratch shared
+    by all of them."""
+    if tier == "shared":
+        yield 0, p, None
+        return
+    step, nbytes = _launch_split(p, lr, g, tier)
+    scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
+    for s in range(0, p, step):
+        yield s, min(step, p - s), scratch.data_ptr()
+
+
+def sw_scores_by_id(genome: torch.Tensor, ids: torch.Tensor, ref_len: int,
+                    q_mat: torch.Tensor, q_lens: torch.Tensor,
+                    group: int | None = None) -> torch.Tensor:
+    """SW scores of genome windows, given by id, against query rows: the
+    score of pair (r, j) is that of the window ids[r, j] against query r.
+    genome [glen] uint8, ids [Q, C] int64 dense window ids (2 pos | strand;
+    a window that does not lie inside the genome, a negative id's too, is
+    ref_len zero bytes, as ``io.fasta.fetch_windows_by_id`` returns it),
+    q_mat [Q, W] uint8 with lengths q_lens [Q] -> int32 [Q, C], equal to
+    :func:`sw_scores` of the fetched windows against the repeated queries.
+
+    On CUDA tensors csrc/sw_score.cu's by-id flavour reads each window from
+    the genome and each query by its row where it scores them: no window
+    and no query copy is laid out.  The windows are the rows when ref_len
+    is at most W, else the columns, in the tier :func:`sw_layout` picks, in
+    as many launches as :func:`sw_scores` would make.  On CPU
+    tensors the plain version fetches the windows and runs
+    :func:`sw_scores_reference`.  `group` forces the kernel's G (tests)."""
+    if genome.dtype != torch.uint8 or q_mat.dtype != torch.uint8:
+        raise TypeError(f"sw_scores_by_id takes uint8 bytes, got {genome.dtype}, "
+                        f"{q_mat.dtype}")
+    if genome.dim() != 1 or ids.dim() != 2 or q_mat.dim() != 2:
+        raise ValueError("sw_scores_by_id needs a 1-D genome, [Q, C] ids and [Q, W] "
+                         "query rows")
+    qn, c = ids.shape
+    if q_mat.shape[0] != qn or q_lens.shape != (qn,):
+        raise ValueError(f"sw_scores_by_id: ids for {qn} queries, {q_mat.shape[0]} query "
+                         f"rows, lengths {tuple(q_lens.shape)}")
+    dev = genome.device
+    if ids.device != dev or q_mat.device != dev:
+        raise ValueError(f"genome on {dev}, ids on {ids.device}, queries on {q_mat.device}")
+    p = qn * c
+    if dev.type == "cpu":
+        w_mat, w_lens = fetch_windows_by_id(genome.numpy(), ids.reshape(-1).numpy(),
+                                            ref_len, max_len=ref_len)
+        return sw_scores(torch.from_numpy(np.ascontiguousarray(w_mat)),
+                         torch.from_numpy(w_lens), q_mat.repeat_interleave(c, dim=0),
+                         q_lens.repeat_interleave(c), group).view(qn, c)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    width = q_mat.shape[1]
+    rows = ref_len <= width  # the narrower side in the rows, as sw_scores puts it
+    lr, lc = (ref_len, width) if rows else (width, ref_len)
+    g, strip, passes, tier = sw_layout(p, lr, lc, group)
+    out = torch.empty(p, dtype=torch.int32, device=dev)
+    if p == 0:
+        return out.view(qn, c)
+    genome = genome.contiguous()
+    ids = ids.to(torch.int64).contiguous()
+    q_mat = q_mat.contiguous()
+    ql = q_lens.to(device=dev, dtype=torch.int32).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s, n, scratch in _launches(p, lr, g, tier, dev):
+            kernels.SW_SCORE_BY_ID.launch(
+                genome.data_ptr(), genome.numel(), ids.data_ptr() + 8 * s,
+                q_mat.data_ptr(), ql.data_ptr(), c, s, int(rows),
+                out.data_ptr() + 4 * s, scratch,
+                n, lr, lc, g, strip, passes, _TIERS.index(tier), stream,
+            )
+    return out.view(qn, c)

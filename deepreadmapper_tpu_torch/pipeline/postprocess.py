@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from deepreadmapper_tpu_torch import resolve_device
-from deepreadmapper_tpu_torch.ops.sw import sw_scores
+from deepreadmapper_tpu_torch.io.fasta import translate_window_ids
+from deepreadmapper_tpu_torch.ops.sw import sw_scores, sw_scores_by_id
 from deepreadmapper_tpu_torch.ops.topk import as_f32, smallest_k
 from deepreadmapper_tpu_torch.utils import trace
 
@@ -118,6 +119,9 @@ def post_process_sw(
     sparse_off: np.ndarray | None = None,
     dense_off: np.ndarray | None = None,
     device: torch.device | str | None = None,
+    genome: np.ndarray | None = None,
+    ref_len: int | None = None,
+    base_off: np.ndarray | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Smith-Waterman post-processing (reference post_process_sw_*): expand
     sparse hits, score every candidate slot by SW against the wrapped query
@@ -126,13 +130,26 @@ def post_process_sw(
     reranked.
 
     query_mat/query_lens: wrapped query bytes + true lengths.
+    genome, ref_len: the reference's bases and its windows' length; with a
+      multi-record reference the concatenated records, whose stream
+      positions base_off and dense_off give (io.fasta.translate_window_ids).
     fetch_windows: callable(ids [M]) -> (bytes [M, W], lens [M]) unwrapped
-      candidate windows (host).
+      candidate windows (host), in place of the genome: CPU only.
     device: where the scores run (default: the CUDA device when present).
 
-    Spans (utils.trace): post.sw.fetch (the expansion, each chunk's window
-    fetch and pair layout), post.sw.score (upload, scoring, download) and
-    post.sw.sort, one of each a chunk of query_chunk reads.
+    Given the genome, it goes to the device once, each call's id matrix and
+    query rows with it, and ops.sw.sw_scores_by_id scores the pairs there:
+    on the card all Q x C pairs in one call, each window read by id where
+    it is scored (nothing is fetched on the host); on CPU tensors
+    query_chunk reads a call, through its plain version (fetch_windows_by_id
+    and the plain SW).  A fetch_windows callable is fetched and scored
+    query_chunk reads at a time.
+
+    Spans (utils.trace): post.sw.fetch (the expansion and the genome's
+    upload; then for each call its ids and query rows, or the callable's
+    fetch and pair layout), post.sw.score (the scoring and the download;
+    on the card its attr pairs_by_id counts the pairs scored by id) and
+    post.sw.sort.
 
     Invalid slots score INT32_MIN and sort last; the sort is stable, so
     ties keep candidate order.  Returns (final_ids [Q, k] int64,
@@ -144,6 +161,10 @@ def post_process_sw(
             f"Final k={k} > k_clusters={k_clusters}: the dense SW rerank "
             "has only k_clusters candidates per query."
         )
+    dev = resolve_device(device)
+    if genome is None and dev.type != "cpu":
+        raise ValueError("post_process_sw reads the windows by id on the card: "
+                         "pass genome= and ref_len=")
     with trace.span("post.sw.fetch"):
         if stride == 1:
             cand_ids = neighbors[:, :k_clusters].astype(np.int64)
@@ -151,33 +172,50 @@ def post_process_sw(
             cand_ids, _ = expand_candidates(
                 neighbors, stride, bound, k_clusters, sparse_off, dense_off
             )
-    dev = resolve_device(device)
+        if genome is not None:
+            g_t = torch.from_numpy(np.ascontiguousarray(genome)).to(dev)
     q, c = cand_ids.shape
+    chunk = query_chunk if dev.type == "cpu" else max(q, 1)
     out_ids = np.empty((q, k), dtype=np.int64)
     out_scores = np.empty((q, k), dtype=np.int32)
-    for start in range(0, q, query_chunk):
+    for start in range(0, q, chunk):
+        end = min(start + chunk, q)
         with trace.span("post.sw.fetch"):
-            end = min(start + query_chunk, q)
-            ids_b = cand_ids[start:end]
-            flat_ids = ids_b.ravel()
-            valid = flat_ids >= 0
-            w_mat, w_lens = fetch_windows(np.where(valid, flat_ids, 0))
-            qa = np.repeat(query_mat[start:end], c, axis=0)
-            ql = np.repeat(query_lens[start:end], c, axis=0)
-        with trace.span("post.sw.score"):
-            scores = sw_scores(
-                torch.from_numpy(np.ascontiguousarray(w_mat)).to(dev),
-                torch.from_numpy(np.asarray(w_lens)).to(dev),
-                torch.from_numpy(qa).to(dev),
-                torch.from_numpy(np.asarray(ql)).to(dev),
-            ).cpu().numpy()
+            if genome is None:
+                flat_ids = cand_ids[start:end].ravel()
+                pairs = fetch_windows(np.where(flat_ids >= 0, flat_ids, 0)) + (
+                    np.repeat(query_mat[start:end], c, axis=0),
+                    np.repeat(query_lens[start:end], c, axis=0))
+            else:
+                ids = cand_ids[start:end]
+                if base_off is not None:
+                    ids = translate_window_ids(ids, dense_off, base_off)
+                ids_t, q_t, ql_t = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                                    for x in (ids, query_mat[start:end],
+                                              query_lens[start:end]))
+        with trace.span("post.sw.score") as score_span:
+            if genome is None:
+                scores = sw_scores(*(torch.from_numpy(np.ascontiguousarray(x))
+                                     for x in pairs)).numpy()
+            else:
+                scores = sw_scores_by_id(g_t, ids_t, ref_len, q_t, ql_t).cpu().numpy()
+                if dev.type != "cpu":
+                    score_span.add("pairs_by_id", scores.size)
         with trace.span("post.sw.sort"):
-            scores = np.where(valid, scores, np.int32(_INT32_MIN)).reshape(end - start, c)
-            # int64 negation: -INT32_MIN does not wrap, so invalid slots sort last
-            order = np.argsort(-scores.astype(np.int64), axis=1, kind="stable")[:, :k]
-            out_scores[start:end] = np.take_along_axis(scores, order, axis=1)
-            out_ids[start:end] = np.take_along_axis(ids_b, order, axis=1)
+            out_ids[start:end], out_scores[start:end] = _top_k(
+                scores.reshape(end - start, c), cand_ids[start:end], k)
     return out_ids, out_scores
+
+
+def _top_k(scores: np.ndarray, cand_ids: np.ndarray, k: int):
+    """The k best slots of each row of scores [n, C] by score descending,
+    stably; invalid slots (cand_ids < 0) score INT32_MIN and sort last.
+    Returns (ids [n, k], scores [n, k])."""
+    scores = np.where(cand_ids >= 0, scores, np.int32(_INT32_MIN))
+    # int64 negation: -INT32_MIN does not wrap, so invalid slots sort last
+    order = np.argsort(-scores.astype(np.int64), axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(cand_ids, order, axis=1),
+            np.take_along_axis(scores, order, axis=1))
 
 
 def rerank_l2(query_emb: torch.Tensor, pool_emb: torch.Tensor,

@@ -554,19 +554,13 @@ def run_pipeline(
                             base_off, sam_file if sam_out else None, cigar, sam_kw)
                     t_long = long_span.seconds
                 elif rerank == "sw":
-                    def fetch_windows(ids: np.ndarray):
-                        if multi:
-                            ids = fasta_io.translate_window_ids(ids, dense_off, base_off)
-                        return fasta_io.fetch_windows_by_id(
-                            genome, ids, ref_len, max_len=ref_len, wrap=False
-                        )
-
                     with trace.span("post.sw.fetch"):
                         q_mat, q_lens = tok.strings_to_bytes(query_seqs)
                     final_ids, final_d = pp.post_process_sw(
-                        neighbors, q_mat, q_lens, fetch_windows, stride, k,
-                        k_clusters, bound, sparse_off=sparse_off, dense_off=dense_off,
-                        device=vectorizer.device,
+                        neighbors, q_mat, q_lens, None, stride, k, k_clusters, bound,
+                        sparse_off=sparse_off, dense_off=dense_off,
+                        device=vectorizer.device, genome=genome, ref_len=ref_len,
+                        base_off=base_off,
                     )
                     if sam_out:
                         with trace.span("post.sam"):

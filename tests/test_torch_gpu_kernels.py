@@ -427,10 +427,10 @@ def test_pqflat_sw_pipeline_cli_on_cuda(cuda, data_dir, tmp_path):
     idx, out = str(tmp_path / "idx"), str(tmp_path / "out")
     assert cli.main(["build-index", fna, idx, "150", "--index-type", "PQFLAT",
                      "--opq"]) == 0
-    before = kernels.SW_SCORE.launches
+    before = kernels.SW_SCORE_BY_ID.launches
     assert cli.main(["pipeline", idx, fq, fna, "128", "10", "128", out,
                      "--rerank", "sw"]) == 0
-    assert kernels.SW_SCORE.launches > before
+    assert kernels.SW_SCORE_BY_ID.launches == before + 1  # the request's pairs by id
     with open(os.path.join(out, "results.sam")) as f:
         prim = [ln.split("\t") for ln in f if not ln.startswith("@")][::10]
     _, names = fastq.parse_fastq(fq)

@@ -423,3 +423,264 @@ def test_post_process_sw_checks_k(data_dir):
     with pytest.raises(ValueError):
         tpp.post_process_sw(neighbors, q_mat, q_lens, fetch, 4, 100, kc, bound,
                             device="cpu")
+
+
+# -- windows by id (ops.sw.sw_scores_by_id, the SW rerank on the card) --------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+_ACGTN = np.frombuffer(b"ACGTN", np.uint8)
+_COMP = np.zeros(256, np.uint8)
+_COMP[_ACGTN] = np.frombuffer(b"TGCAN", np.uint8)
+
+
+def _three_records(rng, ref_len, lens=(1_300, 700, 2_100)):
+    """Three seeded records (one too short for a window at ref_len 700+)
+    and their tables: (records, dense_off, base_off)."""
+    from deepreadmapper_tpu_torch.io import fasta as tfa
+
+    records = [_ACGTN[rng.integers(0, 4, n)] for n in lens]
+    dense_off, base_off = tfa.record_window_table(records, ref_len, 1)
+    return records, dense_off, base_off
+
+
+def _by_id_case(name):
+    """(genome, stream ids [Q, C], ref_len, query rows, lengths) of one
+    shape of the by-id source: reads cut from their windows on either strand
+    with substitutions, against random windows of both strands."""
+    from deepreadmapper_tpu_torch.io import fasta as tfa
+
+    rng = np.random.default_rng(sum(map(ord, name)))
+    ref_len, glen, nq, c, width = 150, 3_000, 37, 10, 152
+    if name == "columns":
+        ref_len = 600
+    elif name == "global":
+        ref_len, glen, nq, c, width = 4_900, 12_000, 3, 2, 4_902
+    genome = _ACGTN[rng.integers(0, 5, glen)]
+    ids = rng.integers(0, 2 * (glen - ref_len + 1), (nq, c))
+    if name == "three_records":
+        records, dense_off, base_off = _three_records(rng, ref_len)
+        genome = np.concatenate(records)
+        dense = rng.integers(0, 2 * int(dense_off[-1]), (nq, c))
+        ids = tfa.translate_window_ids(dense, dense_off, base_off)
+    elif name == "past_end":
+        ids[:, 1::2] = 2 * rng.integers(glen - ref_len + 1, glen + 20, (nq, 5)) + (
+            rng.integers(0, 2, (nq, 5)))
+    elif name == "missing":
+        ids[::3, 1::3] = -1
+    reads = []
+    for r in range(nq):
+        wid = int(ids[r, 0]) if (ids[r, 0] >> 1) + ref_len <= genome.size else 0
+        w = genome[(wid >> 1):(wid >> 1) + ref_len].copy()
+        if wid & 1:
+            w = _COMP[w[::-1]]
+        n = min(ref_len, width - 2) - int(rng.integers(0, 9))
+        s = w[:n].copy()
+        sub = rng.random(n) < 0.02
+        s[sub] = _ACGTN[rng.integers(0, 4, int(sub.sum()))]
+        reads.append("<" + s.tobytes().decode() + ">")
+    q_mat, q_lens = strings_to_bytes(reads, width=width)
+    return genome, ids.astype(np.int64), ref_len, q_mat, q_lens
+
+
+def _fetched_scores(genome, ids, ref_len, q_mat, q_lens, dev):
+    """The host-fetch path's scores: fetch_windows_by_id's windows and the
+    repeated queries through the matrix sw_scores, [Q, C]."""
+    from deepreadmapper_tpu_torch.io import fasta as tfa
+
+    qn, c = ids.shape
+    w_mat, w_lens = tfa.fetch_windows_by_id(genome, ids.ravel(), ref_len, max_len=ref_len)
+    args = (np.ascontiguousarray(w_mat), w_lens, np.repeat(q_mat, c, axis=0),
+            np.repeat(q_lens, c))
+    return tsw.sw_scores(*(torch.from_numpy(x).to(dev) for x in args)).view(qn, c)
+
+
+_BY_ID_CASES = ["both_strands", "past_end", "missing", "three_records", "columns", "global"]
+
+
+@pytest.mark.parametrize("name", _BY_ID_CASES)
+def test_sw_scores_by_id_plain_matches_jax_fetch(name):
+    """The by-id op's plain version (CPU tensors) equals the JAX package's
+    window fetch scored by its sw_scores, score for score: both strands,
+    windows past the genome's end (zero bytes), -1 slots, a three-record
+    stream, windows wider than the queries (the columns), pairs past
+    shared memory (the card's "global" tier).  The card test holds the
+    kernel to this plain version on the same inputs."""
+    genome, ids, ref_len, q_mat, q_lens = _by_id_case(name)
+    before = kernels.SW_SCORE_BY_ID.launches
+    got = tsw.sw_scores_by_id(torch.from_numpy(genome), torch.from_numpy(ids), ref_len,
+                              torch.from_numpy(q_mat), torch.from_numpy(q_lens))
+    assert kernels.SW_SCORE_BY_ID.launches == before
+    assert got.dtype == torch.int32 and got.shape == ids.shape
+    qn, c = ids.shape
+    w_mat, w_lens = fasta_io.fetch_windows_by_id(genome, ids.ravel(), ref_len,
+                                                 max_len=ref_len)
+    want = jsw.sw_scores(np.ascontiguousarray(w_mat), w_lens, np.repeat(q_mat, c, axis=0),
+                         np.repeat(q_lens, c)).reshape(qn, c)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[:, 0].max() > 0.8 * min(ref_len, q_mat.shape[1] - 2)  # the reads' windows
+
+
+def test_sw_scores_by_id_rejects_bad_inputs():
+    g = torch.zeros(500, dtype=torch.uint8)
+    ids = torch.zeros((4, 3), dtype=torch.int64)
+    q = torch.zeros((4, 152), dtype=torch.uint8)
+    n = torch.full((4,), 152)
+    with pytest.raises(TypeError):
+        tsw.sw_scores_by_id(g.int(), ids, 150, q, n)
+    with pytest.raises(ValueError):
+        tsw.sw_scores_by_id(g, ids[:3], 150, q, n)
+    with pytest.raises(ValueError):
+        tsw.sw_scores_by_id(g, ids.view(-1), 150, q, n)
+    with pytest.raises(ValueError):
+        tsw.sw_scores_by_id(g, ids, 150, q, n[:2])
+    assert tsw.sw_scores_by_id(g, ids[:0], 150, q[:0], n[:0]).shape == (0, 3)
+
+
+def _three_record_rerank_case(stride):
+    """A three-record reference's SW rerank at a stride: (neighbors at the
+    stride's ids, query rows, lengths, genome stream, tables, bound)."""
+    from deepreadmapper_tpu_torch.io import fasta as tfa
+
+    rng = np.random.default_rng(30 + stride)
+    ref_len, nq, kc = 150, 24, 4
+    records, dense_off, base_off = _three_records(rng, ref_len)
+    sparse_off, _ = tfa.record_window_table(records, ref_len, stride)
+    genome = np.concatenate(records)
+    dense = rng.integers(0, 2 * int(dense_off[-1]), nq)
+    stream = tfa.translate_window_ids(dense, dense_off, base_off)
+    reads = []
+    for wid in stream:
+        w = genome[wid >> 1:(wid >> 1) + ref_len]
+        reads.append("<" + (_COMP[w[::-1]] if wid & 1 else w).tobytes().decode() + ">")
+    q_mat, q_lens = strings_to_bytes(reads)
+    neighbors = rng.integers(0, 2 * int(sparse_off[-1]), (nq, kc)).astype(np.int64)
+    r, loc = tfa.record_of(dense >> 1, dense_off)  # each read's own window, at the stride
+    neighbors[:, 1] = 2 * (sparse_off[r] + loc // stride) + (dense & 1)
+    neighbors[0, 2] = -1
+    tables = dict(sparse_off=sparse_off, dense_off=dense_off, base_off=base_off)
+    return neighbors, q_mat, q_lens, genome, tables, 2 * int(dense_off[-1]), kc
+
+
+def _rerank_args(data_dir, stride, case):
+    """post_process_sw's inputs two ways: (positional args with the fetch
+    callable, keyword args of the callable's call, keyword args of the
+    genome's call)."""
+    if case == "fixture":
+        neighbors, q_mat, q_lens, fetch, bound, kc = _sw_rerank_case(data_dir, stride)
+        genome = fasta_io.parse_fasta_records(str(data_dir / "ecoli_150.fna"))[0]
+        k = kc if stride == 1 else 12
+        return ((neighbors, q_mat, q_lens, fetch, stride, k, kc, bound), {},
+                dict(genome=genome, ref_len=150))
+    from deepreadmapper_tpu_torch.io import fasta as tfa
+
+    neighbors, q_mat, q_lens, genome, tables, bound, kc = _three_record_rerank_case(stride)
+
+    def fetch(ids):
+        ids = tfa.translate_window_ids(ids, tables["dense_off"], tables["base_off"])
+        return tfa.fetch_windows_by_id(genome, ids, 150, max_len=150)
+
+    offs = dict(sparse_off=tables["sparse_off"], dense_off=tables["dense_off"])
+    k = kc if stride == 1 else 6
+    return ((neighbors, q_mat, q_lens, fetch, stride, k, kc, bound), offs,
+            dict(genome=genome, ref_len=150, base_off=tables["base_off"], **offs))
+
+
+@pytest.mark.parametrize("case", ["fixture", "three_records"])
+@pytest.mark.parametrize("stride", [1, 4])
+def test_post_process_sw_genome_matches_fetch_callable(data_dir, stride, case):
+    """On CPU tensors the genome argument scores query_chunk reads at a
+    time through the by-id op's plain version, as the fetch callable does:
+    the same ids and scores, the same three spans, and no pairs_by_id (no
+    pair is scored by id off the card).  Both equal the JAX package's
+    rerank with its invalid slots moved last (test_post_process_sw_matches_jax's
+    rule); the card test holds the card to the callable on these inputs."""
+    args, offs, by_genome = _rerank_args(data_dir, stride, case)
+    want = tpp.post_process_sw(*args, query_chunk=16, device="cpu", **offs)
+    n_cand = args[6] * (2 * stride - 1)
+    ji, js = jpp.post_process_sw(*args[:5], n_cand, *args[6:], query_chunk=16, **offs)
+    order = np.argsort(js == _INT32_MIN, axis=1, kind="stable")[:, :args[5]]
+    np.testing.assert_array_equal(want[0], np.take_along_axis(ji, order, axis=1))
+    np.testing.assert_array_equal(want[1], np.take_along_axis(js, order, axis=1))
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tpp.post_process_sw(*args[:3], None, *args[4:], query_chunk=16, device="cpu",
+                                  **by_genome)
+    spans = trace.recorded()
+    trace.clear()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert {s.name for s in spans} == {"post.sw.fetch", "post.sw.score", "post.sw.sort"}
+    assert all(not (s.attrs or {}).get("pairs_by_id") for s in spans)
+    assert (got[1][:, 0] > 100).mean() > 0.9  # the reads' own windows win
+
+
+@pytest.mark.gpu
+def test_sw_comp_table_is_the_hosts(cuda):
+    """The complement table the by-id flavour reads is io/fasta.py's COMP."""
+    from deepreadmapper_tpu_torch.io import fasta as tfa
+
+    out = np.zeros(256, np.uint8)
+    kernels.SW_COMP_TABLE.launch(out.ctypes.data)
+    np.testing.assert_array_equal(out, tfa.COMP)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _BY_ID_CASES)
+def test_sw_scores_by_id_matches_fetched_windows_on_the_card(cuda, name):
+    """The by-id launch equals, score for score, the plain version on the
+    CPU (fetch_windows_by_id's windows through sw_scores_reference, which
+    test_sw_scores_by_id_plain_matches_jax_fetch holds to the JAX package
+    on these inputs) and the same windows through the matrix sw_scores on
+    the card, in one launch; the main shape at every G its layout
+    allows."""
+    genome, ids, ref_len, q_mat, q_lens = _by_id_case(name)
+    plain = _fetched_scores(genome, ids, ref_len, q_mat, q_lens, "cpu")
+    width = q_mat.shape[1]
+    lr, lc = min(ref_len, width), max(ref_len, width)
+    tier = tsw.sw_layout(ids.size, lr, lc)[3]
+    assert tier == ("global" if name == "global" else "shared")
+    want = _fetched_scores(genome, ids, ref_len, q_mat, q_lens, cuda)
+    g, i, q, ql = (torch.from_numpy(x).to(cuda) for x in (genome, ids, q_mat, q_lens))
+    groups = [None] + ([1 << j for j in range(6) if (1 << j) >= tsw.sw_layout(
+        ids.size, lr, lc)[0]] if name == "both_strands" else [])
+    for group in groups:
+        before = kernels.SW_SCORE_BY_ID.launches
+        got = tsw.sw_scores_by_id(g, i, ref_len, q, ql, group=group)
+        torch.cuda.synchronize()
+        assert kernels.SW_SCORE_BY_ID.launches == before + 1
+        assert torch.equal(got, want), (group, int((got != want).sum()))
+        assert torch.equal(got.cpu(), plain), (group, int((got.cpu() != plain).sum()))
+    assert int(want[:, 0].max()) > 0.8 * (lr - 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fixture", "three_records"])
+@pytest.mark.parametrize("stride", [1, 4])
+def test_post_process_sw_by_id_on_the_card_equals_the_cpu(cuda, data_dir, stride, case):
+    """post_process_sw on the card, given the genome, scores the request's
+    Q x C pairs in one by-id launch and gives the CPU path's ids and scores
+    exactly (the fetch callable and the plain SW, which
+    test_post_process_sw_genome_matches_fetch_callable holds to the JAX
+    package on these inputs); its post.sw.score span counts the pairs in
+    pairs_by_id."""
+    args, offs, by_genome = _rerank_args(data_dir, stride, case)
+    want = tpp.post_process_sw(*args, device="cpu", **offs)
+    kernels.reset_counts()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tpp.post_process_sw(*args[:3], None, *args[4:], device=cuda, **by_genome)
+    spans = trace.recorded()
+    trace.clear()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert kernels.counts()["sw_score_by_id"] == 1 and kernels.counts()["sw_score"] == 0
+    pairs = args[0].shape[0] * args[6] * (2 * stride - 1)
+    score = [s for s in spans if s.name == "post.sw.score"]
+    assert len(score) == 1 and score[0].attrs == {"pairs_by_id": pairs}
+    assert {s.name for s in spans} == {"post.sw.fetch", "post.sw.score", "post.sw.sort"}
