@@ -33,16 +33,19 @@ from drm_bench.reference import scan as ref_scan
 def reference_run(genome: np.ndarray, cfg: dict, traffic: dict, pool: list[dict],
                   device, windowed: bool) -> dict:
     """The reference's own index and request outputs, computed in TF32 and
-    written as the program writes them.  Returns the index as the judge
-    reads it."""
+    written as the program writes them: the index at the configuration's
+    stride, npy rows of the columns the stride gives and SAM lines in the
+    order of the request's rerank (reference/rerank_<rerank>.py).  Returns
+    the index as the judge reads it."""
     dev = torch.device(device)
-    ref_len = int(cfg["ref_len"])
     req = traffic["request"]
-    k = int(req["k"])
+    k = ref_scan.search_columns(cfg, req)
     kind = ref_judge.index_kind(cfg)
+    rerank = ref_judge.rerank_kind(req)
     with ref_enc.precision(tf32=True):
         enc = ref_enc.Encoder(dev)
         g = torch.from_numpy(genome).to(dev)
+        env = ref_judge.rerank_env(cfg, req, enc, g)
         state = kind.reference_state(enc, g, cfg)
         idx = kind.index_of(state, dev)
         for p in pool:
@@ -58,9 +61,7 @@ def reference_run(genome: np.ndarray, cfg: dict, traffic: dict, pool: list[dict]
             np.save(os.path.join(p["out"], "indices.npy"), ids.astype(np.uint64))
             np.save(os.path.join(p["out"], "distances.npy"), d.astype(np.float32))
             if req.get("write_sam", True):
-                final = ids[:, :k]
-                if req.get("rerank") == "sw":
-                    final = ref_judge.sw_order(g, ref_len, p["reads"], final)
+                final = rerank.order(env, ids, p["reads"], emb)
                 with open(os.path.join(p["out"], "results.sam"), "w") as f:
                     for name, r, row in zip(p["names"], p["reads"], final):
                         f.writelines(ref_sam.read_lines(name, r.tobytes().decode(), row))
@@ -80,8 +81,8 @@ def run_control(cell_name: str, seed: int, device, n_requests: int,
         for j, p in enumerate(pool):
             p["out"] = os.path.join(work, "out", str(j))
         dev = torch.device(device)
-        windowed = dev.type == "cuda" and 2 * ref_scan.num_windows(
-            genome.size, int(cfg["ref_len"])) >= ref_scan.FUSED_MIN_ROWS
+        windowed = dev.type == "cuda" and 2 * ref_scan.index_positions(
+            genome.size, int(cfg["ref_len"]), int(cfg["stride"])).size >= ref_scan.FUSED_MIN_ROWS
         index = reference_run(genome, cfg, traffic, pool, dev, windowed)
         view = {"genome": genome, "config": cfg, "traffic": traffic, "index": index,
                 "windowed": windowed, "requests": pool}
@@ -89,7 +90,7 @@ def run_control(cell_name: str, seed: int, device, n_requests: int,
                                         int(traffic["check_reads"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    checks, correct = ref_judge.verdict(numbers, cfg["limits"])
+    checks, correct = ref_judge.verdict(numbers, ref_judge.limits(cfg, traffic))
     return {"workload": cell_name, "seed": seed, "correct": correct, "checks": checks,
             "info": info}
 

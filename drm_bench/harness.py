@@ -284,7 +284,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device: str
                                         int(traffic["check_reads"]))
         info["check_s"] = time.monotonic() - t
         info["setup_split_s"] = split
-        checks, correct = ref_judge.verdict(numbers, cfg["limits"])
+        checks, correct = ref_judge.verdict(numbers, ref_judge.limits(cfg, traffic))
         failed = sum(1 for r in loop.replies if not r["ok"])
         ctx = Context(replies=loop.replies, window_s=loop.t1 - loop.t0,
                       setup_s=state["setup_s"], peak_mem_bytes=state.get("peak"),

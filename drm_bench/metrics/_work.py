@@ -1,27 +1,23 @@
 """The least time of the window's work by kernel (roofline/), and the
 kernel seconds the trace holds for each.  The scan's work is the one of
 the file the configuration's scan_kernel names, roofline/<scan_kernel>.py;
-the rerank's is the one of the traffic's rerank."""
+the rerank's is the one its own file counts, reference/rerank_<rerank>.py
+(the request's rerank, "l2" where it names none), added to the kernel it
+runs on."""
 
 import importlib
 
-from drm_bench.roofline import gru_fwd, sw_score
-
-RERANK = {"sw": sw_score}
+from drm_bench.reference import judge
+from drm_bench.roofline import gru_fwd
 
 
 def least_s(ctx) -> dict:
     reads = sum(r["reads"] for r in ctx.replies if r["ok"])
-    req = ctx.traffic["request"]
     scan = importlib.import_module("drm_bench.roofline." + ctx.config["scan_kernel"])
     out = {gru_fwd.KERNEL: gru_fwd.least_s(reads),
            scan.KERNEL: scan.scan_least_s(reads, ctx.ntotal, ctx.config)}
-    rerank = req.get("rerank")
-    if rerank is not None:
-        if rerank not in RERANK:
-            raise ValueError(f"no roofline for rerank {rerank!r}")
-        out[RERANK[rerank].KERNEL] = RERANK[rerank].least_s(
-            reads * int(req["k"]), int(ctx.config["ref_len"]), int(ctx.traffic["read_len"]) + 2)
+    for kernel, s in judge.rerank_kind(ctx.traffic["request"]).least_s(ctx, reads).items():
+        out[kernel] = out.get(kernel, 0.0) + s
     return out
 
 

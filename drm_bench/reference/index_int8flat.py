@@ -1,4 +1,5 @@
-"""The INT8FLAT index as the judge reads it: every window's embedding as
+"""The INT8FLAT index as the judge reads it: the embedding of every window
+at the configuration's stride (positions 0, s, 2s, ..., both strands) as
 int8 codes at the scale 1/127 (reference/scan.py).  The judge finds this
 file by the configuration's index_type; a file of the same form for
 another index type is all that type needs here.
@@ -14,7 +15,6 @@ those boundaries and its own everywhere else.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from drm_bench.reference import scan as ref_scan
@@ -28,9 +28,9 @@ def program_state(engine) -> dict:
 def reference_state(enc, genome: torch.Tensor, cfg: dict) -> dict:
     """The reference's own index (for the control)."""
     ref_len = int(cfg["ref_len"])
-    npos = ref_scan.num_windows(genome.numel(), ref_len)
+    pos = ref_scan.index_positions(genome.numel(), ref_len, int(cfg["stride"]))
     codes = torch.cat([ref_scan.quantize(e, ref_scan.INT8_SCALE) for _, e in
-                       ref_scan.window_embeddings(enc, genome, ref_len, np.arange(npos))])
+                       ref_scan.window_embeddings(enc, genome, ref_len, pos)])
     return {"codes": codes.cpu().numpy()}
 
 
@@ -40,17 +40,18 @@ def index_of(state: dict, device) -> ref_scan.Index:
 
 def judge(enc, genome: torch.Tensor, cfg: dict, state: dict, eps: float,
           numbers: dict, info: dict) -> ref_scan.Index:
-    """Embed every window again and judge the program's codes against it:
+    """Embed every window of the index again and judge the program's codes against it:
     numbers["index_gap"]; returns the index the reference scans."""
     dev = genome.device
     ref_len = int(cfg["ref_len"])
-    npos = ref_scan.num_windows(genome.numel(), ref_len)
+    pos = ref_scan.index_positions(genome.numel(), ref_len, int(cfg["stride"]))
     codes = state["codes"]
-    if codes.shape[0] != 2 * npos:
-        raise AssertionError(f"index holds {codes.shape[0]} rows, the genome has {2 * npos}")
+    if codes.shape[0] != 2 * pos.size:
+        raise AssertionError(f"index holds {codes.shape[0]} rows, the genome has "
+                             f"{2 * pos.size} at stride {cfg['stride']}")
     adopted = torch.empty(codes.shape, dtype=torch.int8, device=dev)
     gap_max, n_diff = 0.0, 0
-    for r0, emb in ref_scan.window_embeddings(enc, genome, ref_len, np.arange(npos)):
+    for r0, emb in ref_scan.window_embeddings(enc, genome, ref_len, pos):
         prog = torch.from_numpy(codes[r0 : r0 + emb.shape[0]]).to(dev)
         own = ref_scan.quantize(emb, ref_scan.INT8_SCALE)
         gap = ref_scan.rounding_gap(emb, ref_scan.INT8_SCALE, prog)

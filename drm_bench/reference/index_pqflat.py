@@ -1,7 +1,8 @@
 """The PQFLAT index as the judge reads it: a codebook of 2^nbits centroids
 in each of m_pq sub-spaces, trained by k-means on an evenly spaced sample
-of the windows, and every window's codes, its nearest centroid in each
-sub-space (reference/pq.py).  The judge finds this file by the
+of the windows, and the codes of every window at the configuration's
+stride (positions 0, s, 2s, ..., both strands), its nearest centroid in
+each sub-space (reference/pq.py).  The judge finds this file by the
 configuration's index_type.
 
 The codebook.  k-means on windows of a random genome has no clusters to
@@ -54,9 +55,9 @@ def reference_state(enc, genome: torch.Tensor, cfg: dict) -> dict:
     del train
     m = cent.shape[0]
     parts = []
-    for _, e in ref_scan.window_embeddings(enc, genome, int(cfg["ref_len"]),
-                                           np.arange(ref_scan.num_windows(
-                                               genome.numel(), int(cfg["ref_len"])))):
+    ref_len = int(cfg["ref_len"])
+    pos = ref_scan.index_positions(genome.numel(), ref_len, int(cfg["stride"]))
+    for _, e in ref_scan.window_embeddings(enc, genome, ref_len, pos):
         xs = e.reshape(e.shape[0], m, -1).transpose(0, 1)
         d2 = ((xs * xs).sum(-1, keepdim=True) - 2 * xs @ cent.transpose(1, 2)
               + (cent * cent).sum(-1)[:, None, :])
@@ -76,15 +77,16 @@ def index_of(state: dict, device) -> ref_scan.Index:
 
 def judge(enc, genome: torch.Tensor, cfg: dict, state: dict, eps: float,
           numbers: dict, info: dict) -> ref_scan.Index:
-    """Train again, embed every window again and judge the program's
-    codebook (numbers["kmeans_excess"]) and codes (numbers["index_gap"]);
-    returns the index the reference scans."""
+    """Train again, embed every window of the index again and judge the
+    program's codebook (numbers["kmeans_excess"]) and codes
+    (numbers["index_gap"]); returns the index the reference scans."""
     dev = genome.device
     ref_len = int(cfg["ref_len"])
-    npos = ref_scan.num_windows(genome.numel(), ref_len)
+    pos = ref_scan.index_positions(genome.numel(), ref_len, int(cfg["stride"]))
     codes = state["codes"]
-    if codes.shape[0] != 2 * npos:
-        raise AssertionError(f"index holds {codes.shape[0]} rows, the genome has {2 * npos}")
+    if codes.shape[0] != 2 * pos.size:
+        raise AssertionError(f"index holds {codes.shape[0]} rows, the genome has "
+                             f"{2 * pos.size} at stride {cfg['stride']}")
     cent = torch.from_numpy(np.asarray(state["centroids"], np.float32)).to(dev)
     train, own_cent = _train(enc, genome, cfg)
     own_j = ref_pq.objective(train, own_cent)
@@ -97,7 +99,7 @@ def judge(enc, genome: torch.Tensor, cfg: dict, state: dict, eps: float,
         torch.tensor([0.5, 1.0], dtype=torch.float64, device=dev)) * 127.0]
     adopted = torch.empty(codes.shape, dtype=torch.uint8, device=dev)
     gap_max, n_diff = 0.0, 0
-    for r0, emb in ref_scan.window_embeddings(enc, genome, ref_len, np.arange(npos)):
+    for r0, emb in ref_scan.window_embeddings(enc, genome, ref_len, pos):
         prog = torch.from_numpy(codes[r0 : r0 + emb.shape[0]]).to(dev)
         own, gap = ref_pq.code_gap(emb, cent, prog)
         own = own.to(torch.uint8)

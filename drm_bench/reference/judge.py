@@ -6,8 +6,8 @@ window's reads drawn from the seed, the files their requests wrote
 (indices.npy, distances.npy and, where the traffic writes one, the SAM
 lines).  The plain reference works all of it out again from the same genome
 and reads: the window and read embeddings (reference/encoder.py), the int8
-codes or the PQ codebook and codes, the scan, the Smith-Waterman order and
-the SAM lines.
+codes or the PQ codebook and codes at the configuration's stride, the
+scan, the rerank's order and the SAM lines.
 
 The index.  The code that judges an index sits in a file of its own a
 type, ``reference/index_<index_type>.py``, found by the configuration's
@@ -16,13 +16,23 @@ codes.  Each rebuilds the index the reference scans from its own
 embeddings, taking the program's choice only where a value lies within
 ``eps`` of a rounding boundary.
 
+The rerank.  What judges a rerank's order, counts its work and writes the
+control's SAM lines sits in a file of its own a rerank,
+``reference/rerank_<rerank>.py``, found by the request's rerank or by
+"l2", the pipeline's default, when it names none (``rerank_kind``); a
+rerank with no file is refused.  The npy rows hold k columns at stride 1
+and the k_clusters sparse hits past it; the rerank file turns them into
+the read's final ids.
+
 The reads.  A read's own codes are not in any file, so for a read whose
 row differs, the reference finds the choices at the read's values within
 ``eps`` of a boundary that give the program's distances to its ids, scans
 those, and the read is right when one gives the program's row bit for
 bit.  A PQ request's query scale is its largest |value| / 127, which
 rounding may move by an ulp: the reference takes the scale, among those
-within eps of its own, that gives the program's top distances.
+within eps of its own, that gives the most of the program's distances over
+the whole rows of up to 64 probe reads (error-free reads' top distances
+alone can read alike at two scales).
 
 Numbers compared, each with its limit in the configuration file:
 
@@ -32,7 +42,9 @@ Numbers compared, each with its limit in the configuration file:
 * kmeans_excess (PQ): the program's codebook's k-means objective over the
   reference's training sample, relative to the reference's own, less one.
 * reads_wrong: sampled reads whose npy row or SAM lines no rounding choice
-  explains.
+  explains, or whose rows are not of the shape the stride gives.
+* what a rerank file adds past stride 1 (rerank_l2: l2_gap), with the
+  limit the file gives (``limits``).
 """
 
 from __future__ import annotations
@@ -46,15 +58,12 @@ import torch
 from drm_bench.reference import encoder as ref_enc
 from drm_bench.reference import sam as ref_sam
 from drm_bench.reference import scan as ref_scan
-from drm_bench.reference import sw as ref_sw
 
 MAX_AMBIGUOUS = 16  # values of one read next to a boundary whose choices are tried
 
 
 def _load_rows(out_dir: str):
-    ids = np.load(f"{out_dir}/indices.npy").astype(np.uint64).view(np.int64)
-    d = np.load(f"{out_dir}/distances.npy").astype(np.float32)
-    return ids, d
+    return ref_scan.load_ids(out_dir), np.load(f"{out_dir}/distances.npy").astype(np.float32)
 
 
 def sample_reads(sizes: list[int], n_check: int, seed: int) -> list[tuple[int, int]]:
@@ -70,17 +79,45 @@ def sample_reads(sizes: list[int], n_check: int, seed: int) -> list[tuple[int, i
     return sorted(own + [rest[p] for p in pick])
 
 
-def index_kind(cfg: dict):
-    """The module that judges the configuration's index type,
-    reference/index_<index_type>.py."""
-    name = "drm_bench.reference.index_" + str(cfg["index_type"]).lower()
+def _by_name(kind: str, value) -> object:
+    name = f"drm_bench.reference.{kind}_{str(value).lower()}"
     try:
         return importlib.import_module(name)
     except ModuleNotFoundError as e:
         if e.name != name:
             raise
-        raise ValueError(f"no judge for index_type {cfg['index_type']!r}: "
+        what = "index_type" if kind == "index" else kind
+        raise ValueError(f"no judge for {what} {value!r}: "
                          f"{name.replace('.', '/')}.py is missing") from None
+
+
+def index_kind(cfg: dict):
+    """The module that judges the configuration's index type,
+    reference/index_<index_type>.py."""
+    return _by_name("index", cfg["index_type"])
+
+
+def rerank_kind(keys: dict):
+    """The module of a request's rerank (keys: the request's own keys),
+    reference/rerank_<rerank>.py, "l2" where it names none."""
+    return _by_name("rerank", keys.get("rerank") or "l2")
+
+
+def limits(cfg: dict, traffic: dict) -> dict:
+    """Each number's limit: the configuration's and, where the requests
+    write SAM lines, those their rerank adds."""
+    req = traffic["request"]
+    return {**cfg["limits"],
+            **(rerank_kind(req).limits(cfg) if req.get("write_sam", True) else {})}
+
+
+def rerank_env(cfg: dict, keys: dict, enc, genome: torch.Tensor) -> dict:
+    """What a rerank file reads: the encoder, the genome on its device, and
+    the request's sizes (bound: 2 x the genome's dense windows)."""
+    ref_len = int(cfg["ref_len"])
+    return {"enc": enc, "genome": genome, "ref_len": ref_len, "stride": int(cfg["stride"]),
+            "k": int(keys["k"]),
+            "bound": 2 * ref_scan.num_windows(genome.numel(), ref_len)}
 
 
 def verdict(numbers: dict, limits: dict) -> tuple[dict, bool]:
@@ -92,7 +129,8 @@ def verdict(numbers: dict, limits: dict) -> tuple[dict, bool]:
 def _infer_scale(emb: np.ndarray, sc: float, idx: ref_scan.Index, prog_ids, prog_d,
                  windowed: bool, eps: float) -> np.float32:
     """The query scale the program used for one request (see the module
-    doc): the candidate that gives the most of its top-1 distances."""
+    doc): the candidate that gives the most of its distances over the
+    probes' whole rows."""
     qmax = np.float32(np.max(np.abs(emb))) if emb.size else np.float32(0)
     span = eps * max(float(np.float32(sc)), float(qmax) / 127.0)
     cands, v = {}, qmax
@@ -105,8 +143,8 @@ def _infer_scale(emb: np.ndarray, sc: float, idx: ref_scan.Index, prog_ids, prog
     if len(cands) == 1:
         return np.float32(next(iter(cands)))
     probe = np.arange(min(64, emb.shape[0]))
-    pid = torch.from_numpy(np.maximum(prog_ids[probe, :1], 0)).to(idx.codes.device)
-    r8 = idx.rows_at(pid)
+    pid = torch.from_numpy(np.maximum(prog_ids[probe], 0)).to(idx.codes.device)
+    r8 = idx.rows_at(pid)  # [probes, columns, 128]
     best, best_hits = None, -1
     # nearest first: the reference's own scale is tried first and most often right
     for sq in sorted(cands, key=cands.get):
@@ -115,34 +153,12 @@ def _infer_scale(emb: np.ndarray, sc: float, idx: ref_scan.Index, prog_ids, prog
         q8 = ref_scan.quantize_host(emb[probe], sq)
         s = ref_scan.score_rows(torch.from_numpy(q8).to(r8.device), r8, ratio, windowed)
         d = ref_scan.distances(s.cpu().numpy(), q8, np.full(len(probe), ratio), sc, windowed)
-        hits = int((d[:, 0] == prog_d[probe, 0]).sum())
+        hits = int((d == prog_d[probe]).sum())
         if hits > best_hits:
             best, best_hits = sq, hits
-        if hits == len(probe):
+        if hits == d.size:
             break
     return best
-
-
-def sw_order(genome: torch.Tensor, ref_len: int, reads: np.ndarray, ids: np.ndarray):
-    """Candidate ids [n, c] reordered by Smith-Waterman score against the
-    wrapped reads, highest first, stable; missing candidates last."""
-    dev = genome.device
-    n, c = ids.shape
-    flat = torch.from_numpy(ids.reshape(-1)).to(dev)
-    valid = flat >= 0
-    pos = torch.clamp(flat, min=0) >> 1
-    j = torch.arange(ref_len, device=dev)[None, :]
-    comp = torch.from_numpy(ref_scan._COMP).to(dev)
-    fwd = genome[pos[:, None] + j]
-    rev = comp[genome[pos[:, None] + ref_len - 1 - j].long()]
-    win = torch.where((flat & 1).bool()[:, None], rev, fwd)
-    mat, lens = ref_enc.wrap_reads(reads)
-    qa = torch.from_numpy(np.repeat(mat, c, axis=0)).to(dev)
-    ql = torch.from_numpy(np.repeat(lens, c)).to(dev)
-    s = ref_sw.sw_scores(win, torch.full((n * c,), ref_len, device=dev), qa, ql)
-    s = torch.where(valid, s.long(), torch.iinfo(torch.int64).min // 2).view(n, c)
-    order = torch.sort(-s, dim=1, stable=True).indices.cpu().numpy()
-    return np.take_along_axis(ids, order, axis=1)
 
 
 def judge(view: dict, device, seed: int, eps: float, n_check: int) -> tuple[dict, dict]:
@@ -151,9 +167,8 @@ def judge(view: dict, device, seed: int, eps: float, n_check: int) -> tuple[dict
     "requests" ([{"reads", "names", "out"}]), "windowed"}."""
     cfg, traffic = view["config"], view["traffic"]
     req_keys = traffic["request"]
-    k = int(req_keys["k"])
-    if req_keys.get("rerank") not in (None, "sw"):
-        raise ValueError(f"no judge for rerank {req_keys['rerank']!r}")
+    rerank = rerank_kind(req_keys)
+    cols = ref_scan.search_columns(cfg, req_keys)
     dev = torch.device(device)
     numbers: dict = {}
     info: dict = {}
@@ -182,8 +197,12 @@ def judge(view: dict, device, seed: int, eps: float, n_check: int) -> tuple[dict
             emb = emb_all[off : off + n]
             off += n
             ids_p, dist_p = _load_rows(r["out"])
-            if ids_p.shape != (n, k):
-                raise AssertionError(f"{r['out']}: indices {ids_p.shape}, want {(n, k)}")
+            if ids_p.shape != (n, cols) or dist_p.shape != (n, cols):
+                # rows of another shape than the stride gives: no row is right
+                info.setdefault("rows_malformed", []).append(
+                    {"request": j, "indices": list(ids_p.shape), "want": [n, cols]})
+                ids_p = np.full((n, cols), -2, np.int64)
+                dist_p = np.full((n, cols), np.nan, np.float32)
             sq = _infer_scale(emb, idx.scale, idx, ids_p, dist_p, windowed, eps)
             sel = np.asarray(by_req[j])
             q_emb.append(emb[sel])
@@ -201,7 +220,7 @@ def judge(view: dict, device, seed: int, eps: float, n_check: int) -> tuple[dict
 
         def run(q8_rows, ratio_rows):
             s, ids = ref_scan.scan(torch.from_numpy(q8_rows).to(dev), idx.rows,
-                                   idx.ntotal, idx.ntotal, ratio_rows, k, windowed)
+                                   idx.ntotal, idx.ntotal, ratio_rows, cols, windowed)
             d = ref_scan.distances(s.cpu().numpy(), q8_rows, ratio_rows, idx.scale, windowed)
             return ids.cpu().numpy(), d
 
@@ -247,20 +266,18 @@ def judge(view: dict, device, seed: int, eps: float, n_check: int) -> tuple[dict
         t = time.monotonic()
         wrong = ~same
         if req_keys.get("write_sam", True):
-            final = ids_r[:, :k]
-            if req_keys.get("rerank") == "sw":
-                reads = np.stack([reqs[j]["reads"][i] for j, i, _ in who])
-                final = sw_order(genome, int(cfg["ref_len"]), reads, final)
             sams = {j: ref_sam.lines_by_read(f"{reqs[j]['out']}/results.sam") for j in by_req}
-            sam_bad = 0
-            for w, (j, i, _) in enumerate(who):
-                name = reqs[j]["names"][i]
-                seq = reqs[j]["reads"][i].tobytes().decode()
-                if sams[j].get(name) != ref_sam.read_lines(name, seq, final[w]):
-                    sam_bad += 1
-                    wrong[w] = True
-            info["sam_reads_unequal"] = sam_bad
-        split["sw_sam"] = time.monotonic() - t
+            names = [reqs[j]["names"][i] for j, i, _ in who]
+            reads = np.stack([reqs[j]["reads"][i] for j, i, _ in who])
+            bad, extra, more = rerank.judge_sam(
+                rerank_env(cfg, req_keys, enc, genome), ids_r, reads, q_emb, names,
+                [r.tobytes().decode() for r in reads],
+                [sams[j].get(name) for (j, _, _), name in zip(who, names)])
+            numbers.update(extra)
+            info.update(more)
+            info["sam_reads_unequal"] = int(bad.sum())
+            wrong |= bad
+        split["rerank_sam"] = time.monotonic() - t
         numbers["reads_wrong"] = int(wrong.sum())
         info["reads_checked"] = len(who)
     return numbers, info

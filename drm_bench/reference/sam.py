@@ -30,3 +30,25 @@ def lines_by_read(path: str) -> dict[str, list[str]]:
                 continue
             out.setdefault(line.split("\t", 1)[0], []).append(line)
     return out
+
+
+def ids_of(lines: list[str]) -> list[int] | None:
+    """The window ids a read's lines name, in order (2 x (POS - 1), + 1
+    on the reverse strand; an unmapped line names none); None when a line
+    cannot be read."""
+    out = []
+    try:
+        for line in lines:
+            f = line.split("\t")
+            flag = int(f[1])
+            if not flag & 4:
+                out.append(2 * (int(f[3]) - 1) + (1 if flag & 16 else 0))
+    except (IndexError, ValueError):
+        return None
+    return out
+
+
+def unequal(names: list[str], seqs: list[str], got: list, final) -> list[bool]:
+    """For each read, whether its lines (got, None if absent) differ from
+    those the ids final [n, k] give."""
+    return [got[w] != read_lines(names[w], seqs[w], final[w]) for w in range(len(names))]

@@ -4,8 +4,9 @@ exhaustive int8 scan, in plain PyTorch and NumPy.
 Semantics (those of the reference mapper's INT8FLAT search as the port
 defines them, docs of ``index/int8_flat.py`` and ``ops/scan_kernel.py``):
 
-* Windows: every position p of the genome gives two rows, 2p (the window
-  as it stands) and 2p + 1 (its reverse complement); a row is tokenized as
+* Windows: every s-th position p = i s of the genome (s the index's
+  stride, 1 for a dense index) gives two rows, 2i (the window as it
+  stands) and 2i + 1 (its reverse complement); a row is tokenized as
   '<' + window + '>'.
 * Codes: round(x / s) half to even, clipped to +-127, the division in fp32;
   the index scale is 1/127 (the encoder's outputs are tanh-bounded).
@@ -59,6 +60,44 @@ def num_windows(genome_len: int, ref_len: int) -> int:
     return max(0, genome_len - ref_len + 1)
 
 
+def index_positions(genome_len: int, ref_len: int, stride: int) -> np.ndarray:
+    """Positions of an index's windows: 0, s, 2s, ... up to
+    (genome_len - ref_len) // s * s; row 2i + strand is the i-th."""
+    if genome_len < ref_len:
+        return np.zeros(0, np.int64)
+    return np.arange((genome_len - ref_len) // stride + 1, dtype=np.int64) * stride
+
+
+def load_ids(out_dir: str) -> np.ndarray:
+    """A request's indices.npy as int64 (-1 where the row holds none)."""
+    return np.load(f"{out_dir}/indices.npy").astype(np.uint64).view(np.int64)
+
+
+def search_columns(cfg: dict, keys: dict) -> int:
+    """Columns of a request's npy rows: k at stride 1, past it the
+    k_clusters sparse hits (keys: the request's own keys)."""
+    if int(cfg["stride"]) == 1:
+        return int(keys["k"])
+    return int(keys.get("k_clusters", cfg["k_clusters"]))
+
+
+def candidates(raw: np.ndarray, stride: int, k: int, bound: int) -> np.ndarray:
+    """The rerank's candidate dense ids [n, C] of npy rows raw [n, cols]
+    (-1 where a slot holds none).  At stride 1 a row's first k.  Past it
+    each sparse hit h expands to h s - (s - 1) ... h s + (s - 1), the
+    reference mapper's post_processor.cpp:74-201 with ``actual_position =
+    sparse_id * stride``; slots outside [0, bound), and every slot of a hit
+    with h s >= bound or h < 0, hold none (bound: 2 x the genome's dense
+    windows)."""
+    if stride == 1:
+        return raw[:, :k].astype(np.int64)
+    hits = raw.astype(np.int64)
+    ap = hits * stride
+    cand = ap[:, :, None] + np.arange(-(stride - 1), stride, dtype=np.int64)
+    ok = (hits >= 0)[:, :, None] & (ap < bound)[:, :, None] & (cand >= 0) & (cand < bound)
+    return np.where(ok, cand, -1).reshape(raw.shape[0], -1)
+
+
 def window_embeddings(enc, genome: torch.Tensor, ref_len: int, positions,
                       batch: int = 16384):
     """Yield (first row, fp32 embeddings [2n, 128]) over the windows at the
@@ -69,6 +108,22 @@ def window_embeddings(enc, genome: torch.Tensor, ref_len: int, positions,
     for s in range(0, positions.numel(), batch):
         mat, lens = window_rows(genome, positions[s : s + batch], ref_len)
         yield 2 * s, enc(tokenize(mat, lens))
+
+
+def embed_ids(enc, genome: torch.Tensor, ref_len: int, ids: np.ndarray,
+              batch: int = 16384) -> torch.Tensor:
+    """fp32 embeddings [n, 128] of the windows with the given dense ids
+    (2 x position + strand, each >= 0), on the encoder's device."""
+    from drm_bench.reference.encoder import tokenize
+
+    ids = torch.from_numpy(np.asarray(ids, np.int64))
+    outs = [torch.zeros((0, 128), device=enc.device)]
+    for s in range(0, ids.numel(), batch):
+        part = ids[s : s + batch].to(genome.device)
+        mat, lens = window_rows(genome, part >> 1, ref_len)
+        pick = 2 * torch.arange(part.numel(), device=genome.device) + (part & 1)
+        outs.append(enc(tokenize(mat[pick], lens[pick])))
+    return torch.cat(outs)
 
 
 def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:

@@ -62,9 +62,46 @@ def make_tiny_root(dst: str, code: bool = False, genome_bp: int = TINY_BP,
     return dst
 
 
+SPARSE_CELL = "sparse4.l2_sam"
+
+
+def add_sparse_cell(root: str, reads: int = 64) -> str:
+    """Add to a root, as data files only, a stride-4 INT8FLAT configuration
+    (k 10, k_clusters 5; the genome of the root's ecoli_int8flat) and an
+    L2-rerank SAM traffic file (three requests of `reads`), and the cell
+    sparse4.l2_sam in its BENCHMARK.json."""
+    dd = os.path.join(root, "drm_bench")
+    with open(os.path.join(dd, "configs", "ecoli_int8flat.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="sparse4", stride=4, k=10, k_clusters=5)
+    with open(os.path.join(dd, "configs", "sparse4.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(dd, "traffic", "l2_sam.json"), "w") as f:
+        json.dump({"name": "l2_sam", "read_len": 150, "sub_rate": 0.01,
+                   "request_reads": {"kind": "fixed", "reads": reads}, "pool_requests": 3,
+                   "request": {"k": 10, "write_sam": True}, "check_reads": 100}, f)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "sparse4", "source": "a test", "reduced": [],
+                             "file": "drm_bench/configs/sparse4.json", "why": "a test"})
+    bench["workloads"].append({"name": SPARSE_CELL, "config": "sparse4", "traffic": "l2_sam",
+                               "chips": 1, "why": "a test"})
+    next(m for m in bench["end_to_end"] if m["name"] == "sam_reads_per_s")[
+        "workloads"].append(SPARSE_CELL)
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    return root
+
+
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
     return make_tiny_root(str(tmp_path_factory.mktemp("tiny")))
+
+
+@pytest.fixture(scope="session")
+def sparse_root(tmp_path_factory):
+    """A tiny root with the stride-4 cell sparse4.l2_sam added."""
+    return add_sparse_cell(make_tiny_root(str(tmp_path_factory.mktemp("sparse"))))
 
 
 @pytest.fixture

@@ -8,13 +8,13 @@ import os
 import subprocess
 import sys
 
-from drm_bench.tests.conftest import REPO, make_tiny_root
+from drm_bench.tests.conftest import REPO, SPARSE_CELL, add_sparse_cell, make_tiny_root
 
 _CHILD = """
 import json, sys, time
 from drm_bench import harness
-res, _ = harness.run_cell("tiny_b.npy_small", 8, 1.0, True, "cpu", time.monotonic(),
-                          tmp=sys.argv[1])
+res = {cell: harness.run_cell(cell, 8, 1.0, True, "cpu", time.monotonic(), tmp=sys.argv[1])[0]
+       for cell in sys.argv[2:]}
 print(json.dumps(res))
 """
 
@@ -56,15 +56,21 @@ def test_added_files_are_found(tmp_path):
                                "moves": "reads_per_s", "workloads": ["tiny_b.npy_small"]})
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
+    # a stride-4 INT8FLAT configuration and an L2-rerank SAM traffic file
+    add_sparse_cell(root, reads=40)
     after = _digest(root)
     assert all(after[p] == h for p, h in before.items())  # nothing edited, only added
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, REPO]))
-    out = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=600)
+    out = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path), "tiny_b.npy_small",
+                          SPARSE_CELL], cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    res = got["tiny_b.npy_small"]
     assert res["correct"] is True
     assert res["metrics"]["requests_done"]["value"] == res["attempted"] >= 1
+    sparse = got[SPARSE_CELL]
+    assert sparse["correct"] is True and "l2_gap" in sparse["checks"]
 
 
 def test_an_unknown_index_type_or_rerank_is_refused():
@@ -87,5 +93,8 @@ def test_an_unknown_index_type_or_rerank_is_refused():
         _work.least_s(ctx)
     ctx.config["scan_kernel"] = "int8_winmin"
     ctx.traffic["request"]["rerank"] = "nw"
-    with pytest.raises(ValueError, match="rerank"):
+    with pytest.raises(ValueError, match="rerank_nw.py is missing"):
         _work.least_s(ctx)
+    with pytest.raises(ValueError, match="rerank_nw.py is missing"):
+        judge.rerank_kind(ctx.traffic["request"])
+    assert judge.rerank_kind({"k": 10}).__name__.endswith("rerank_l2")

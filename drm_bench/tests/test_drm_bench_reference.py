@@ -10,7 +10,9 @@ import torch
 
 from drm_bench import gen, harness
 from drm_bench.reference import encoder as ref_enc
+from drm_bench.reference import judge as ref_judge
 from drm_bench.reference import pq as ref_pq
+from drm_bench.reference import rerank_l2
 from drm_bench.reference import sam as ref_sam
 from drm_bench.reference import scan as ref_scan
 from drm_bench.reference import sw as ref_sw
@@ -179,3 +181,106 @@ def test_pq_training_sample_is_the_builds(monkeypatch):
             build._pq_stream_encode([np.zeros(bp, np.uint8)], 150, 1, BuildConfig(), None)
         pos = ref_pq.sample_positions(bp, 150, 1, 0.5, PQ_CONFIG["train_rows"])
         assert pos[1] == seen[-1] and pos[-1] + seen[-1] > bp - 150
+
+
+def test_rerank_l2_equals_the_ports_at_stride_4(genome, reads):
+    """reference/rerank_l2's order of a stride-4 index's sparse hits is the
+    port's post_process_l2 (expansion, dedup, re-embed, sqrt-L2 rerank),
+    hits past the genome's end and missing hits too."""
+    from deepreadmapper_tpu_torch import tokenizer as tok
+    from deepreadmapper_tpu_torch.io import fasta
+    from deepreadmapper_tpu_torch.models.encoder import Vectorizer
+    from deepreadmapper_tpu_torch.pipeline import postprocess as pp
+
+    stride, ref_len = 4, 150
+    nsparse = (genome.size - ref_len) // stride + 1
+    bound = 2 * (genome.size - ref_len + 1)
+    rng = np.random.default_rng(12)
+    r, starts, strands = gen.make_reads(genome, 40, 150, 0.01, rng)
+    hits = rng.integers(0, 2 * nsparse, (40, 5))
+    hits[:, 0] = 2 * (starts // stride) + strands  # the read's own sparse window first
+    hits[0, 1], hits[1, 1], hits[2, 2] = 2 * nsparse - 1, -1, hits[2, 1] + 1
+    vec = Vectorizer(device="cpu")
+    mat, lens = ref_enc.wrap_reads(r)
+    q = vec.vectorize_wrapped_bytes(mat, lens)
+
+    def embed_windows(ids):
+        m, ln = fasta.fetch_windows_by_id(genome, ids, ref_len, tok.MAX_LEN, wrap=True)
+        return vec.vectorize_wrapped_bytes(m, ln)
+
+    want, _ = pp.post_process_l2(hits, np.zeros(hits.shape, np.float32), q, embed_windows,
+                                 stride, 10, 5, bound)
+    enc = ref_enc.Encoder("cpu")
+    env = ref_judge.rerank_env({"ref_len": ref_len, "stride": stride}, {"k": 10}, enc,
+                               torch.from_numpy(genome))
+    emb = ref_enc.embed_reads(enc, r).numpy()
+    got = rerank_l2.order(env, hits, r, emb)
+    assert np.array_equal(got, want)
+    # the judge reads the port's order as right
+    names = [f"r{i}" for i in range(len(r))]
+    seqs = [x.tobytes().decode() for x in r]
+    lines = [ref_sam.read_lines(nm, sq, row) for nm, sq, row in zip(names, seqs, want)]
+    wrong, numbers, _ = rerank_l2.judge_sam(env, hits, r, emb, names, seqs, lines)
+    assert not wrong.any() and numbers["l2_gap"] <= rerank_l2.TOL
+    # a swap of two ranks whose distances lie apart, or an id that is no
+    # candidate of the read, is wrong
+    bad = [list(x) for x in lines]
+    bad[3] = ref_sam.read_lines(names[3], seqs[3], want[3][[1, 0, *range(2, 10)]])
+    bad[4] = ref_sam.read_lines(names[4], seqs[4], np.r_[want[4][:9], 2 * nsparse + 7])
+    wrong, numbers, _ = rerank_l2.judge_sam(env, hits, r, emb, names, seqs, bad)
+    assert wrong.tolist() == [i in (3, 4) for i in range(len(r))]
+    assert numbers["l2_gap"] > rerank_l2.TOL
+
+
+@pytest.mark.parametrize("index_type", ["INT8FLAT", "PQFLAT"])
+def test_the_index_judges_read_the_ports_stride_4_build(index_type, tmp_path):
+    """The reference embeds the windows at positions 0, 4, 8, ... on both
+    strands, the rows of the port's stride-4 build."""
+    cfg = dict(PQ_CONFIG, index_type=index_type, stride=4, genome_bp=3000)
+    genome = gen.make_genome(3000, 21)
+    ref = str(tmp_path / "ref.fna")
+    gen.write_fasta(ref, genome)
+    engine, _ = harness.build_engine(ref, str(tmp_path / "index"), cfg, torch.device("cpu"))
+    assert engine.ntotal == 2 * ((3000 - 150) // 4 + 1)
+    kind = ref_judge.index_kind(cfg)
+    numbers, info = {}, {}
+    idx = kind.judge(ref_enc.Encoder("cpu"), torch.from_numpy(genome), cfg,
+                     kind.program_state(engine), 0.01, numbers, info)
+    assert idx.ntotal == engine.ntotal
+    # the two CPU encoders agree to 1e-5 (test_encoder_matches_the_ports), so
+    # a code may sit a rounding apart, within 1e-3 code steps of its cell
+    assert numbers["index_gap"] < 1e-3, info
+    if index_type == "PQFLAT":
+        assert abs(numbers["kmeans_excess"]) < cfg["limits"]["kmeans_excess"]
+    with pytest.raises(AssertionError, match="at stride 1"):  # the stride is read
+        kind.judge(ref_enc.Encoder("cpu"), torch.from_numpy(genome), dict(cfg, stride=1),
+                   kind.program_state(engine), 0.01, {}, {})
+
+
+def test_the_query_scale_is_read_from_whole_rows():
+    """A request whose largest |value| / 127 equals the code scale to the
+    bit: an ulp of the encoder moves the program's query scale past it.
+    Error-free reads' top distances read alike at both scales, so only the
+    rows' other columns tell them apart."""
+    rng = np.random.default_rng(14)
+    codes = rng.integers(-100, 101, (4096, 128)).astype(np.int8)
+    idx = ref_scan.Index(torch.from_numpy(codes), ref_scan.INT8_SCALE)
+    emb = codes[:64].astype(np.float32) / np.float32(127.0)  # each read a row of the index
+    emb[0, 0] = np.float32(1.0)  # its largest |value| / 127: the code scale, to the bit
+    codes[0, 0] = 127
+    assert np.float32(1.0) / np.float32(127.0) == np.float32(ref_scan.INT8_SCALE)
+    up = np.nextafter(np.float32(1.0), np.float32(2.0))
+    sq, ratio = ref_scan.query_scale_ratio(up, ref_scan.INT8_SCALE)  # the program's
+    assert ratio != 1
+
+    def rows_at(scale, r):
+        q8 = ref_scan.quantize_host(emb, scale)
+        s, ids = ref_scan.scan(torch.from_numpy(q8), idx.rows, 4096, 4096, r, 10, True,
+                               chunk=1024)
+        return ids.numpy(), ref_scan.distances(s.numpy(), q8, np.full(64, r), idx.scale, True)
+
+    prog_ids, prog_d = rows_at(sq, ratio)
+    _, own_d = rows_at(np.float32(ref_scan.INT8_SCALE), np.float32(1.0))
+    assert np.array_equal(own_d[:, 0], prog_d[:, 0])  # the top distances alone: a tie
+    got = ref_judge._infer_scale(emb, idx.scale, idx, prog_ids, prog_d, True, 0.01)
+    assert got == sq

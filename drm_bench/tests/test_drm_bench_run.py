@@ -7,9 +7,11 @@ import json
 import time
 from unittest import mock
 
+import numpy as np
 import pytest
 
 from drm_bench import harness, run
+from drm_bench.tests.conftest import SPARSE_CELL
 
 
 def _run(tiny_root, tmp_path, cell, trace=False):
@@ -147,3 +149,82 @@ def test_checks_are_the_last_lines(tiny_root, tmp_path, monkeypatch, capsys):
     assert lines[-2].startswith("bytes_written ")
     err = out.err.strip().splitlines()
     assert [ln.split(":")[0] for ln in err[-2:]] == ["check index_gap", "check reads_wrong"]
+
+
+def test_a_sparse_run_is_correct(sparse_root, tmp_path):
+    """Stride 4 with the L2 rerank: the npy rows hold the k_clusters sparse
+    hits, the SAM lines the reranked dense ids, and the rerank adds l2_gap."""
+    res, info = _run(sparse_root, tmp_path, SPARSE_CELL)
+    assert res["correct"] is True, (res["checks"], info)
+    assert set(res["checks"]) == {"index_gap", "reads_wrong", "l2_gap"}
+    assert info["reads_checked"] >= 64 and info["sam_reads_unequal"] == 0
+
+
+@contextlib.contextmanager
+def _on_l2(change):
+    """A fault of the L2 rerank: its result changed by change(ids, call's
+    arguments) where it is produced."""
+    from deepreadmapper_tpu_torch.pipeline import postprocess as pp
+
+    orig = pp.post_process_l2
+
+    def post(*a, **kw):
+        ids, d = orig(*a, **kw)
+        return change(ids.copy(), a), d
+
+    with mock.patch.object(pp, "post_process_l2", post):
+        yield
+
+
+def _rerank_skipped(ids, a):
+    from deepreadmapper_tpu_torch.pipeline import postprocess as pp
+
+    neighbors, _, _, _, stride, k, k_clusters, bound = a[:8]
+    cand, _ = pp.expand_candidates(neighbors, stride, bound, k_clusters)
+    return cand[:, :k]
+
+
+def _shifted(ids, a):
+    return np.where(ids >= 0, ids + 1, ids)
+
+
+@contextlib.contextmanager
+def _one_sided_expansion():
+    from deepreadmapper_tpu_torch.pipeline import postprocess as pp
+
+    def expand(neighbors, stride, bound, k_clusters, sparse_off=None, dense_off=None):
+        sparse = neighbors[:, :k_clusters].astype(np.int64)
+        cand = sparse[:, :, None] * stride + np.arange(stride)
+        ok = (sparse[:, :, None] >= 0) & (cand < bound)
+        return (np.where(ok, cand, -1).reshape(len(sparse), -1),
+                ok.reshape(len(sparse), -1))
+
+    with mock.patch.object(pp, "expand_candidates", expand):
+        yield
+
+
+@contextlib.contextmanager
+def _npy_of_k_columns():
+    from deepreadmapper_tpu_torch.pipeline import search
+
+    orig = search.save_results
+
+    def save(n, d, fi, fd, k):
+        orig(np.tile(n, 2), np.tile(d, 2), fi, fd, 2 * k)
+
+    with mock.patch.object(search, "save_results", save):
+        yield
+
+
+@pytest.mark.parametrize("fault", [
+    lambda: _on_l2(_rerank_skipped),
+    _one_sided_expansion,
+    lambda: _on_l2(_shifted),
+    _npy_of_k_columns,
+], ids=["rerank_skipped", "one_sided_expansion", "ids_shifted", "npy_of_k_columns"])
+def test_a_broken_sparse_path_is_not_correct(sparse_root, tmp_path, fault):
+    with fault():
+        res, _ = _run(sparse_root, tmp_path, SPARSE_CELL)
+    assert res["correct"] is False
+    c = res["checks"]["reads_wrong"]
+    assert c["value"] > c["limit"]
