@@ -256,6 +256,13 @@ def post_process_l2(
     force_rerank: rerank even at stride == 1 (the ANN list is the
       candidate set).
 
+    Spans (utils.trace), opened only when it reranks (past stride 1, or
+    force_rerank): post.l2.expand (the expansion and the dedup; counters
+    slots, the candidate slots, and windows, the unique windows
+    re-embedded), then post.l2.rank (the rerank and the download).  The
+    spans between them, post.l2.pack and post.l2.embed, are the
+    embed_windows callable's own (search.run_pipeline's opens them).
+
     Returns (final_ids [Q, k] int64, final_dists [Q, k] fp32).
     """
     check_invariant(k, k_clusters, stride)
@@ -265,25 +272,29 @@ def post_process_l2(
             neighbors[:, :k].astype(np.int64),
             distances[:, :k].astype(np.float32),
         )
-    if stride == 1:
-        if k > neighbors.shape[1]:
-            raise ValueError(
-                f"Final k={k} > ANN candidate count {neighbors.shape[1]} "
-                "for the dense rerank."
-            )
-        cand_ids = neighbors.astype(np.int64)
-    else:
-        cand_ids, _ = expand_candidates(
-            neighbors, stride, bound, k_clusters, sparse_off, dense_off
+    if stride == 1 and k > neighbors.shape[1]:
+        raise ValueError(
+            f"Final k={k} > ANN candidate count {neighbors.shape[1]} "
+            "for the dense rerank."
         )
-    uniq, pool_idx = unique_pool(cand_ids)
+    with trace.span("post.l2.expand") as expand_span:
+        if stride == 1:
+            cand_ids = neighbors.astype(np.int64)
+        else:
+            cand_ids, _ = expand_candidates(
+                neighbors, stride, bound, k_clusters, sparse_off, dense_off
+            )
+        uniq, pool_idx = unique_pool(cand_ids)
+        expand_span.add("slots", cand_ids.size)
+        expand_span.add("windows", uniq.size)
     pool_emb = as_f32(embed_windows(uniq))
-    dev = pool_emb.device
-    d, ids = rerank_l2(
-        as_f32(query_embeddings, dev),
-        pool_emb,
-        torch.from_numpy(pool_idx).to(dev),
-        torch.from_numpy(cand_ids).to(dev),
-        k,
-    )
-    return ids.cpu().numpy().astype(np.int64), d.cpu().numpy().astype(np.float32)
+    with trace.span("post.l2.rank"):
+        dev = pool_emb.device
+        d, ids = rerank_l2(
+            as_f32(query_embeddings, dev),
+            pool_emb,
+            torch.from_numpy(pool_idx).to(dev),
+            torch.from_numpy(cand_ids).to(dev),
+            k,
+        )
+        return ids.cpu().numpy().astype(np.int64), d.cpu().numpy().astype(np.float32)

@@ -16,6 +16,7 @@ import re
 import time
 
 import numpy as np
+import torch
 
 from deepreadmapper_tpu_torch import native
 from deepreadmapper_tpu_torch import tokenizer as tok
@@ -388,7 +389,9 @@ def run_pipeline(
     Spans (utils.trace): pipeline.index, pipeline.embed, pipeline.search,
     pipeline.post (children post.fasta, post.l2 or post.sw.fetch /
     post.sw.score / post.sw.sort, post.sam, post.finish, or
-    post.long_reads) and write.npy; the returned t_embed, t_search and
+    post.long_reads; when the L2 path reranks, post.l2's children
+    post.l2.expand, post.l2.pack, post.l2.embed and post.l2.rank) and
+    write.npy; the returned t_embed, t_search and
     t_post are the three pipeline spans' seconds."""
     if rerank not in ("l2", "sw"):
         raise ValueError(f"unknown rerank {rerank!r} (l2 | sw)")
@@ -520,27 +523,39 @@ def run_pipeline(
                               dense_off=dense_off, pg=pg, quals=quals, rg=read_group)
 
                 def embed_windows(unique_ids: np.ndarray):
-                    if multi:
-                        unique_ids = fasta_io.translate_window_ids(
-                            unique_ids, dense_off, base_off
-                        )
-                    # candidates are re-embedded WRAPPED, the space the index
-                    # was built in; the pool stays on the device for the rerank
-                    if vectorizer.max_len != tok.MAX_LEN:
-                        mat, lengths = fasta_io.fetch_windows_by_id(
-                            genome, unique_ids, ref_len, vectorizer.max_len, wrap=True
-                        )
-                        return vectorizer.vectorize_tokens(
-                            tok.tokenize_bytes_fast(mat, lengths, vectorizer.max_len),
-                            device_out=True)
-                    if native.available():
-                        wire = native.pack_windows_by_id(genome, ref_len, unique_ids)
-                    else:
-                        mat, lengths = fasta_io.fetch_windows_by_id(
-                            genome, unique_ids, ref_len, tok.MAX_LEN, wrap=True
-                        )
-                        wire = pack_wrapped_numpy(mat, lengths)
-                    return vectorizer.vectorize_wire(wire, device_out=True)
+                    # post.l2.pack: the rows the host builds for the upload
+                    # (host_bytes counts them); post.l2.embed: the upload,
+                    # the device tokenizer and #1
+                    with trace.span("post.l2.pack") as pack_span:
+                        if multi:
+                            unique_ids = fasta_io.translate_window_ids(
+                                unique_ids, dense_off, base_off
+                            )
+                        # candidates are re-embedded WRAPPED, the space the
+                        # index was built in
+                        if vectorizer.max_len != tok.MAX_LEN:
+                            mat, lengths = fasta_io.fetch_windows_by_id(
+                                genome, unique_ids, ref_len, vectorizer.max_len, wrap=True
+                            )
+                            rows = tok.tokenize_bytes_fast(mat, lengths, vectorizer.max_len)
+                            embed = vectorizer.vectorize_tokens
+                        elif native.available():
+                            rows = native.pack_windows_by_id(genome, ref_len, unique_ids)
+                            embed = vectorizer.vectorize_wire
+                        else:
+                            mat, lengths = fasta_io.fetch_windows_by_id(
+                                genome, unique_ids, ref_len, tok.MAX_LEN, wrap=True
+                            )
+                            rows = pack_wrapped_numpy(mat, lengths)
+                            embed = vectorizer.vectorize_wire
+                        pack_span.add("host_bytes", rows.nbytes)
+                    with trace.span("post.l2.embed"):
+                        # the pool stays on the device for the rerank; the
+                        # span ends when #1 has, not when it is enqueued
+                        pool = embed(rows, device_out=True)
+                        if pool.is_cuda:
+                            torch.cuda.current_stream(pool.device).synchronize()
+                        return pool
 
                 def cigars_of(seqs, primary_ids):
                     return _primary_alignment_cigars(seqs, primary_ids, genome, ref_len,

@@ -61,8 +61,10 @@ def run(cell: str, mode: str, seed: int, seconds: float, check: bool) -> dict:
         patches.append(mock.patch.object(
             ptrace, "_profiler", types.SimpleNamespace(_is_profiler_enabled=False)))
     if not check:
+        # every number the verdict compares, the rerank's (l2_gap) too
         patches.append(mock.patch.object(judge, "judge", lambda view, *a, **k: (
-            {name: float("nan") for name in view["config"]["limits"]}, {})))
+            {name: float("nan") for name in judge.limits(view["config"], view["traffic"])},
+            {})))
     if hasattr(ptrace, "clear"):
         ptrace.clear()
     t0 = time.monotonic()
@@ -74,14 +76,17 @@ def run(cell: str, mode: str, seed: int, seconds: float, check: bool) -> dict:
         for p in patches:
             p.stop()
     ctx = kept["ctx"]
-    bench = harness.load_bench()
     out = {"cell": cell, "mode": mode, "seed": seed, "correct": result["correct"] if check
            else None, "device": result["device"]["kind"], "attempted": result["attempted"]}
+    # the end-to-end metrics read from the context; a traced run's per-layer
+    # ones as the harness read them, while the run's output files still
+    # existed (a sparse cell's work counts read each request's indices.npy)
     out["metrics"] = {}
-    for m in harness.metrics_of(bench, cell, False) + harness.metrics_of(bench, cell, True):
+    for m in harness.metrics_of(harness.load_bench(), cell, False):
         value = harness.load_metric(m["name"]).read(ctx)
         if value is not None:
             out["metrics"][m["name"]] = value
+    out["metrics"].update((name, m["value"]) for name, m in result["metrics"].items())
     ok = [r for r in ctx.replies if r["ok"]]
     out["reply_medians_ms"] = {k: 1e3 * float(np.median([r[k] for r in ok])) if ok else None
                                for k in ("t_embed", "t_search", "t_post")}

@@ -8,10 +8,16 @@ spans' durations; each span's ``record_function`` event lies on the program's ow
 stamps (the shared clock); the benchmark's metric files that read the
 spans give the expected values on a hand-built context.
 
+Past stride 1 (an INT8FLAT index at stride 4 on the CPU): each ``post.l2``
+span holds ``post.l2.expand``, ``.pack``, ``.embed`` and ``.rank`` in that
+order, covering at least 99% of it, on the one-shot and the streamed
+path; the counters ``slots``, ``windows`` and ``host_bytes`` equal a count
+by hand; at stride 1 ``post.l2`` has no child.
+
 On the card (``-m gpu``; skips without one): on a 2 Mbp index every #1
-``gru_fwd`` interval of the profiler lies inside an ``embed.encode`` span,
-every #2 / #4 scan inside ``pipeline.search`` and every #3 ``sw_score``
-inside ``post.sw.score``:
+``gru_fwd`` interval of the profiler lies inside an ``embed.encode`` span
+(or, at stride 4, a ``post.l2.embed`` one), every #2 / #4 scan inside
+``pipeline.search`` and every #3 ``sw_score`` inside ``post.sw.score``:
 
     python -m pytest tests/test_torch_trace_spans.py -m gpu -q
 """
@@ -230,6 +236,93 @@ def test_record_function_events_lie_on_the_program_stamps(idx, data_dir, tmp_pat
             assert abs(a - s) < 200_000 and abs(b - f) < 200_000, (name, a - s, b - f)
 
 
+# -- the L2 rerank past stride 1 --------------------------------------------
+
+_L2_CHILDREN = ["post.l2.expand", "post.l2.pack", "post.l2.embed", "post.l2.rank"]
+_BATCH = 64  # the streamed request's rerank batch: 150 reads in three
+
+
+@pytest.fixture(scope="module")
+def idx_s4(tmp_path_factory, data_dir):
+    prefix = str(tmp_path_factory.mktemp("spans_s4") / "idx")
+    build_index(str(data_dir / "ecoli_150.fna"), prefix, 150, 4, device="cpu")
+    return prefix
+
+
+def _served_s4(idx_s4, data_dir, tmp_path, streaming):
+    """One stride-4 L2 request (k 10, k_clusters 5, SAM), served under a CPU
+    profiler: (its output directory, the request's spans)."""
+    from deepreadmapper_tpu_torch.config import SearchConfig
+
+    out_dir = str(tmp_path / f"s4_{streaming}")
+    req = {"id": "q4", "fastq": str(data_dir / "test_data.fastq"), "output_dir": out_dir,
+           "k": 10, "k_clusters": 5, "use_streaming": streaming}
+    out = io.StringIO()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with record_function("warm"):
+            pass
+        serve(idx_s4, str(data_dir / "ecoli_150.fna"), out_stream=out, device="cpu",
+              search_cfg=SearchConfig(query_batch_size=_BATCH),
+              in_stream=io.StringIO(json.dumps(req) + "\n"))
+    reply = json.loads(out.getvalue().splitlines()[1])
+    assert reply["ok"], reply
+    return out_dir, [s for s in trace.recorded() if s.request == "q4"]
+
+
+@pytest.mark.parametrize("streaming", [False, True], ids=["one_shot", "streaming"])
+def test_post_l2_children_in_order_cover_it(idx_s4, data_dir, tmp_path, streaming):
+    """Past stride 1 each post.l2 span (one a streamed batch) holds the
+    expansion, the host rows, the re-embed and the rerank, in that order,
+    and they cover at least 99% of its time."""
+    _, spans = _served_s4(idx_s4, data_dir, tmp_path, streaming)
+    kids = _children(spans)
+    l2 = [s for s in spans if s.name == "post.l2"]
+    assert len(l2) == (3 if streaming else 1)
+    covered = 0
+    for p in l2:
+        got = kids.get(p.sid, [])
+        assert [c.name for c in got] == _L2_CHILDREN
+        for a, b in zip(got, got[1:]):
+            assert a.end_ns <= b.start_ns
+        assert all(p.start_ns <= c.start_ns and c.end_ns <= p.end_ns for c in got)
+        assert all(c.sid not in kids for c in got)  # leaves
+        covered += sum(c.ns for c in got)
+    assert covered >= 0.99 * sum(p.ns for p in l2)
+
+
+def test_post_l2_counters_equal_a_count_by_hand(idx_s4, data_dir, tmp_path):
+    """slots: reads x k_clusters x (2 stride - 1); windows: the distinct
+    valid candidates of the request's own npy rows, each hit h giving
+    4h - 3 ... 4h + 3 inside [0, 2 x the genome's windows); host_bytes: 48
+    wire bytes a window."""
+    from deepreadmapper_tpu_torch.io.fasta import extract_fasta_sequence
+
+    out_dir, spans = _served_s4(idx_s4, data_dir, tmp_path, False)
+    rows = np.load(os.path.join(out_dir, "indices.npy")).astype(np.uint64).view(np.int64)
+    bound = 2 * (extract_fasta_sequence(str(data_dir / "ecoli_150.fna")).size - 150 + 1)
+    windows = set()
+    for row in rows:
+        for h in row[:5]:
+            if h >= 0 and 4 * h < bound:
+                windows.update(w for w in range(4 * h - 3, 4 * h + 4) if 0 <= w < bound)
+    (expand,) = [s for s in spans if s.name == "post.l2.expand"]
+    (pack,) = [s for s in spans if s.name == "post.l2.pack"]
+    assert rows.shape == (150, 5)
+    assert expand.attrs == {"slots": 150 * 5 * 7, "windows": len(windows)}
+    assert pack.attrs == {"host_bytes": 48 * len(windows)}
+    assert all(s.attrs is None for s in spans
+               if s.name in ("post.l2", "post.l2.embed", "post.l2.rank"))
+
+
+def test_stride_1_opens_no_child_of_post_l2(idx, data_dir, tmp_path):
+    """At stride 1 the L2 path passes the search's rows through: post.l2
+    is a leaf, as before its children existed."""
+    _, spans, _ = _served(idx, data_dir, tmp_path, "l2")
+    (l2,) = [s for s in spans if s.name == "post.l2"]
+    assert not any(s.parent == l2.sid for s in spans)
+    assert not any(s.name.startswith("post.l2.") for s in spans)
+
+
 # -- the benchmark's metric files on a hand-built context --------------------
 
 def _metric(name):
@@ -397,12 +490,17 @@ def _genome_and_reads(work, bp=2_000_000, n_reads=2048, seed=7):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("index_type,scan", [("INT8FLAT", "int8_winmin"),
-                                             ("PQFLAT", "pq_winmin")])
-def test_card_kernels_lie_inside_their_layer_spans(cuda, tmp_path, index_type, scan):
+@pytest.mark.parametrize("index_type,scan,stride", [("INT8FLAT", "int8_winmin", 1),
+                                                    ("PQFLAT", "pq_winmin", 1),
+                                                    ("INT8FLAT", "int8_winmin", 4)],
+                         ids=["INT8FLAT-int8_winmin", "PQFLAT-pq_winmin",
+                              "INT8FLAT-int8_winmin-stride4"])
+def test_card_kernels_lie_inside_their_layer_spans(cuda, tmp_path, index_type, scan,
+                                                   stride):
+    """At stride 4 the L2 request's re-embed runs #1 inside post.l2.embed."""
     ref, fq = _genome_and_reads(str(tmp_path))
     prefix = str(tmp_path / "idx")
-    build_index(ref, prefix, 150, index_type=index_type, device=cuda)
+    build_index(ref, prefix, 150, stride, index_type=index_type, device=cuda)
     reqs = [{"id": "l2", "fastq": fq, "output_dir": str(tmp_path / "l2"), "k": 10},
             {"id": "sw", "fastq": fq, "output_dir": str(tmp_path / "sw"), "k": 10,
              "rerank": "sw"}]
@@ -412,8 +510,9 @@ def test_card_kernels_lie_inside_their_layer_spans(cuda, tmp_path, index_type, s
         serve(prefix, ref, in_stream=io.StringIO(lines), out_stream=out, device=cuda)
     assert all(json.loads(ln)["ok"] for ln in out.getvalue().splitlines())
     spans = trace.recorded()
-    homes = {"gru_fwd": "embed.encode", scan: "pipeline.search", "sw_score": "post.sw.score"}
-    inside = {name: [(s.start_ns, s.end_ns) for s in spans if s.name == home]
+    homes = {"gru_fwd": ("embed.encode",) + (("post.l2.embed",) if stride > 1 else ()),
+             scan: ("pipeline.search",), "sw_score": ("post.sw.score",)}
+    inside = {name: [(s.start_ns, s.end_ns) for s in spans if s.name in home]
               for name, home in homes.items()}
     seen = dict.fromkeys(homes, 0)
     for e in prof.profiler.kineto_results.events():
@@ -427,6 +526,8 @@ def test_card_kernels_lie_inside_their_layer_spans(cuda, tmp_path, index_type, s
         assert any(s <= a and b <= f for s, f in inside[name]), (e.name(), a, b)
         seen[name] += 1
     assert min(seen.values()) > 0, seen
+    if stride > 1:
+        assert any(s.name == "post.l2.embed" for s in spans)
     # the selection's CUDA events, on the span open at the scan's call
     scans = [s for s in spans if s.name == "search.scan"]
     assert len(scans) == 2
